@@ -1,0 +1,330 @@
+"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (non-zero exit) on failure:
+
+1. card: name and power limit (nvidia-smi); build the CUDA kernels from
+   the sources in this checkout and print the build time;
+2. each kernel against its plain PyTorch version on the card, at the
+   shapes of the main path (K1 match_rows: Q = 8192, K = 20, index equal
+   where valid, point and d2 within 1e-6; K2 jtwj_accumulate: Q = 8192 and
+   a ragged Q, rtol 2e-5 / atol 1e-4, two runs bitwise equal), with CUDA
+   event times of both;
+3. the main path, `LidarOdometry(device="cuda")` at the full VLP16
+   configuration `OdometryConfig()`, on the 40-scan bench drive (seed 42,
+   5 m/s): one warm-up pass, one timed pass. It fails if a kernel was not
+   launched, if the launch counts do not match the ICP schedule (K1 once
+   per outer round, K2 four times), if aligned ATE against ground truth
+   exceeds 0.03 m, or if any scan diverged.
+
+Prints a `kernels` JSON line, then as its last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+Exits non-zero without a result when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(fn, reps: int, queue_first: bool = True) -> float:
+    """Mean time of fn() over `reps` back-to-back calls, by CUDA events.
+
+    queue_first: the card first spins ~0.1 s (torch.cuda._sleep), so the
+    host has queued every call before the card reaches the start event and
+    the events time the device's work alone; without it they time the
+    calls as the host dispatches them.
+    """
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if queue_first:
+        torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def candidate_fixture(rng, Q: int, K: int, device):
+    """Candidate rows in the port's CandidateSet layout: three (9*Q, RW)
+    int32 arrays (planar x/y/z lanes + f32 count lane) and n_present (9, Q),
+    with candidates scattered around each query."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.ops.voxel_map import _lanes
+
+    RW, _, _ = _lanes(K)
+    q = rng.uniform(-5, 5, (Q, 3)).astype(np.float32)
+    rows = np.zeros((3, 9, Q, RW), np.float32)
+    pts = q[None, None, :, None, :] + rng.normal(0, 0.25, (3, 9, Q, K, 3))
+    cnt = rng.integers(0, K + 1, (3, 9, Q))
+    for i in range(3):
+        rows[..., i * K:(i + 1) * K] = pts[..., i]
+    rows[..., 3 * K] = cnt
+    n_present = rng.integers(0, 4, (9, Q)).astype(np.int32)
+    rows_z = tuple(torch.from_numpy(rows[s].reshape(9 * Q, RW).view(np.int32).copy()).to(device)
+                   for s in range(3))
+    return (torch.from_numpy(q).to(device), rows_z,
+            torch.from_numpy(n_present).to(device), cnt, n_present)
+
+
+def check_match_rows(rng, device) -> dict:
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.kernels.correspondence import (
+        match_rows, match_rows_plain)
+
+    Q, K, max_d2 = 8192, 20, float(np.float32(0.3 * 0.3))
+    q, rows_z, n_present, cnt, npres = candidate_fixture(rng, Q, K, device)
+    max_err = 0.0
+    for shift in (0.0, 100.0):  # 100 m: no query has a valid candidate
+        qs = q + shift
+        po, pi, pd = match_rows(qs, rows_z, n_present, max_d2=max_d2, max_points=K)
+        ro, ri, rd = match_rows_plain(qs, rows_z, n_present, max_d2=max_d2, max_points=K)
+        torch.cuda.synchronize()
+        valid = (rd < max_d2).cpu().numpy()
+        if shift == 0.0 and valid.sum() < Q // 2:
+            raise AssertionError(f"K1 fixture has too few matches: {valid.sum()}")
+        if shift > 0.0:
+            if valid.any() or not torch.all(pd == max_d2) or not torch.all(pi == 0):
+                raise AssertionError("K1: a query without candidates must give max_d2, index 0")
+        pi_n, ri_n = pi.cpu().numpy(), ri.cpu().numpy()
+        if not np.array_equal(pi_n[valid], ri_n[valid]):
+            raise AssertionError(f"K1 index differs at {np.sum(pi_n[valid] != ri_n[valid])} queries")
+        err_d = (pd - rd).abs().max().item()
+        err_o = (po - ro).abs()[torch.from_numpy(valid).to(device)].max().item() if valid.any() else 0.0
+        if err_d > 1e-6 or err_o > 1e-6:
+            raise AssertionError(f"K1 disagrees: d2 {err_d}, point {err_o}")
+        max_err = max(max_err, err_d, err_o)
+
+    def kernel():
+        return match_rows(q, rows_z, n_present, max_d2=max_d2, max_points=K)
+
+    ms = time_ms(kernel, 100)
+    call_ms = time_ms(kernel, 100, queue_first=False)
+    plain_ms = time_ms(lambda: match_rows_plain(q, rows_z, n_present, max_d2=max_d2,
+                                                max_points=K), 5)
+    # least traffic: each present slice's count lane and its cnt candidates'
+    # three coordinates, the queries, n_present, and the outputs
+    present = np.arange(3)[:, None, None] < npres[None]
+    n_cand = float(np.sum(np.where(present, cnt, 0)))
+    n_bytes = 4.0 * (np.sum(present) + 3 * n_cand) + Q * 12 + 9 * Q * 4 + Q * 20
+    b_ms, b_by = bound_ms(n_bytes, 9 * n_cand)
+    log(f"kernel match_rows (K1): Q={Q} K={K} max_abs_err={max_err:.3g} "
+        f"kernel {ms:.4f} ms on the card ({call_ms:.4f} ms per call as dispatched), "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="match_rows", route="cuda",
+                source="lidar_odometry_demo_tpu_torch/kernels/match_rows.cu",
+                replaces="lidar_odometry_demo_tpu/ops/pallas/correspondence.py:119",
+                max_abs_err=max_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_jtwj(rng, device) -> dict:
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate, jtwj_plain
+
+    def system(Q):
+        sl = rng.uniform(-20, 20, (Q, 3)).astype(np.float32)
+        pn = rng.normal(0, 1, (Q, 3)).astype(np.float32)
+        pn /= np.linalg.norm(pn, axis=1, keepdims=True)
+        R = Rotation.from_euler("xyz", [0.02, -0.01, 0.3]).as_matrix().astype(np.float32)
+        t = np.array([1.5, -0.2, 0.1], np.float32)
+        po = (sl @ R.T + t + rng.normal(0, 0.03, (Q, 3))).astype(np.float32)
+        valid = rng.random(Q) < 0.8
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (sl, po, pn, valid, R, t)]
+
+    max_err = 0.0
+    for Q in (8192, 8192 - 77):
+        args = system(Q)
+        H, b = jtwj_accumulate(*args, huber_delta=0.15)
+        H2, b2 = jtwj_accumulate(*args, huber_delta=0.15)
+        Hp, bp = jtwj_plain(*args, huber_delta=0.15)
+        torch.cuda.synchronize()
+        if not (torch.equal(H, H2) and torch.equal(b, b2)):
+            raise AssertionError("K2 is not bitwise repeatable")
+        for got, ref in ((H, Hp), (b, bp)):
+            if not torch.allclose(got, ref, rtol=2e-5, atol=1e-4):
+                raise AssertionError(f"K2 disagrees at Q={Q}: {(got - ref).abs().max().item()}")
+            max_err = max(max_err, (got - ref).abs().max().item())
+    args = system(8192)
+
+    def kernel():
+        return jtwj_accumulate(*args, huber_delta=0.15)
+
+    ms = time_ms(kernel, 200)
+    call_ms = time_ms(kernel, 200, queue_first=False)
+    plain_ms = time_ms(lambda: jtwj_plain(*args, huber_delta=0.15), 20)
+    Q = 8192
+    # inputs read once (3 x (Q,3) f32, (Q,) bool, R, t), H and b written;
+    # ~100 flops per correspondence
+    b_ms, b_by = bound_ms(Q * 37 + 48 + 42 * 4, 100 * Q)
+    log(f"kernel jtwj_accumulate (K2): Q={Q} max_abs_err={max_err:.3g} "
+        f"kernel {ms:.4f} ms on the card ({call_ms:.4f} ms per call as dispatched), "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return dict(name="jtwj_accumulate", route="cuda",
+                source="lidar_odometry_demo_tpu_torch/kernels/jtwj.cu",
+                replaces="lidar_odometry_demo_tpu/ops/pallas/jtwj.py:101",
+                max_abs_err=max_err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# --------------------------------------------------------------------------
+# phase 3: the main path
+# --------------------------------------------------------------------------
+
+def run_main_path(device) -> dict:
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
+    from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse, read_tum
+    from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate
+    from lidar_odometry_demo_tpu_torch.ops.cloud import scan_from_numpy
+    from lidar_odometry_demo_tpu_torch.ops.voxel_map import map_size
+    from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
+
+    cfg = OdometryConfig()
+    num_scans = 40
+    t0 = time.perf_counter()
+    drive = simulate_sequence(num_scans=num_scans, width=cfg.scan_width, seed=42,
+                              speed=5.0, yaw_rate=0.08)
+    scans = [scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
+                             cfg.max_raw_points, device) for s in drive.scans]
+    log(f"main path: simulated and uploaded {num_scans} scans in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    warm = LidarOdometry(cfg, device=device)
+    for scan in scans:
+        warm.process_scan(scan)
+    torch.cuda.synchronize()
+    log(f"main path: warm-up pass {time.perf_counter() - t0:.1f} s")
+
+    odo = LidarOdometry(cfg, device=device)
+    match_rows.launches = 0
+    jtwj_accumulate.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    diags = [odo.process_scan(scan) for scan in scans]
+    end.record()
+    end.synchronize()
+    launches = {"match_rows": match_rows.launches,
+                "jtwj_accumulate": jtwj_accumulate.launches}
+    ms_per_scan = start.elapsed_time(end) / num_scans
+
+    est = np.stack([d.pose.t.cpu().numpy() for d in diags])
+    iters = np.array([int(d.icp_iterations) for d in diags])
+    diverged = np.array([bool(d.diverged) for d in diags])
+    if not np.all(np.isfinite(est)) or est.shape != (num_scans, 3):
+        raise AssertionError("main path: non-finite or misshapen poses")
+    g0 = drive.gt_q[0]
+    g0_R = Rotation.from_quat([g0[1], g0[2], g0[3], g0[0]])
+    gt_rel = g0_R.inv().apply(drive.gt_t - drive.gt_t[0])
+    ate = ate_rmse(est, gt_rel, align=True)
+    _, ref_t, _ = read_tum(os.path.join(REPO, "benchmarks", "BASELINE_REF.tum"))
+    ate_ref = ate_rmse(est, ref_t, align=True)
+    occupancy = int(map_size(odo.state.keyframe))
+    rounds = int(iters.sum())
+    icp_scans = int(np.sum(iters > 0))
+    log(f"main path: {ms_per_scan:.3f} ms/scan, {1e3 / ms_per_scan:.2f} scans/s "
+        f"(CUDA events, {num_scans} scans, full OdometryConfig)")
+    log(f"main path: aligned ATE {ate:.5f} m vs ground truth, {ate_ref:.5f} m vs "
+        f"benchmarks/BASELINE_REF.tum")
+    log(f"main path: map occupancy {occupancy} / {cfg.map_capacity} voxels, mean ICP "
+        f"rounds {rounds / max(icp_scans, 1):.2f} over {icp_scans} scans, "
+        f"diverged {int(diverged.sum())}, launches {launches}")
+
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+    if launches["match_rows"] != rounds:
+        raise AssertionError(f"K1 launches {launches['match_rows']} != ICP rounds {rounds}")
+    if launches["jtwj_accumulate"] != cfg.icp_inner_iterations * rounds:
+        raise AssertionError(
+            f"K2 launches {launches['jtwj_accumulate']} != 4 x ICP rounds {rounds}")
+    if ate > 0.03:
+        raise AssertionError(f"aligned ATE {ate:.4f} m exceeds 0.03 m")
+    if diverged.any():
+        raise AssertionError(f"{int(diverged.sum())} scans diverged")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from lidar_odometry_demo_tpu_torch.kernels import _build
+
+    device = torch.device("cuda")
+    card = card_line()
+    log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    _build.build_all()
+    log(f"kernels built in {_build.build_seconds:.1f} s")
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    rng = np.random.default_rng(1234)
+    kernels = [check_match_rows(rng, device), check_jtwj(rng, device)]
+    launches = run_main_path(device)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        k["kernel_ms"] = k["ms"]
+    print(json.dumps({"kernels": kernels, "card": card}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+"""PyTorch / CUDA port of the LiDAR odometry engine, for one NVIDIA H100.
+
+A second package beside the JAX reference ``lidar_odometry_demo_tpu``,
+with the same module names: deskew -> planar classification -> voxel
+downsampling -> point-to-plane ICP against the hash-voxel keyframe map ->
+keyframe update with radius eviction. The two TPU kernels of that path are
+hand-written CUDA kernels here (``kernels/``). Entry points run on the
+card unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from lidar_odometry_demo_tpu_torch import device as _device  # noqa: F401  (turns TF32 off)
+from lidar_odometry_demo_tpu_torch.config import TINY, OdometryConfig, reference_parity
+
+__all__ = ["OdometryConfig", "TINY", "reference_parity"]

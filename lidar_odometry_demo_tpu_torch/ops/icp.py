@@ -1,0 +1,162 @@
+"""Point-to-plane ICP with a hand-rolled Gauss-Newton solver on SE(3)
+(port of the JAX ``ops/icp.py``; reference src/cloud_matcher.cpp:105-178).
+
+- residual r_i = n_i . (R p_i + t - o_i), Huber IRLS weights
+  w_i = min(1, delta/|r_i|), Jacobian J_i = [(R p_i) x n_i, n_i];
+- normal equations H = J^T W J, b = J^T W r by kernel K2
+  (kernels/jtwj.py) plus the reference's translation prior;
+- a 6x6 unrolled Cholesky solve with light Levenberg damping, four steps
+  per correspondence set;
+- an outer loop of re-matching the cached candidates (kernel K1 via
+  voxel_map.match_candidates) with the reference's schedule: convergence on
+  the step norm after the minimum rounds, the 35-round cap, the stall exit
+  and the best-pose exit.
+
+The outer loop is Python control flow: each round reads its exit condition
+from the device (one synchronisation per round).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate
+from lidar_odometry_demo_tpu_torch.ops import se3
+from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
+
+
+class IcpResult(NamedTuple):
+    pose: se3.Pose
+    iterations: torch.Tensor   # outer iterations executed (int32)
+    step_norm: torch.Tensor    # last GN step norm
+    num_matches: torch.Tensor  # correspondences of the returned pose's round
+
+
+def solve_spd_6x6(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve H x = b for SPD 6x6 by a fully unrolled Cholesky, with the JAX
+    package's 1e-12 pivot guard (same operation order, so CPU results agree
+    to rounding)."""
+    n = 6
+    L = [[None] * n for _ in range(n)]
+    for j in range(n):
+        s = H[j, j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        diag = torch.sqrt(torch.clamp_min(s, 1e-12))
+        L[j][j] = diag
+        inv_d = 1.0 / diag
+        for i in range(j + 1, n):
+            s = H[i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s * inv_d
+    y = [None] * n
+    for i in range(n):
+        s = b[i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return torch.stack(x)
+
+
+def _normal_equations(corr: vm.Correspondence, pose: se3.Pose,
+                      guess_t: torch.Tensor, cfg: OdometryConfig):
+    """H (6, 6), b (6,) at `pose`, parameters (rotation delta, translation
+    delta), with the translation prior NormalPrior(diag(1/sigma)) on
+    (t - t_guess) (cloud_matcher.cpp:153-154)."""
+    R = se3.quat_to_matrix(pose.q).contiguous()
+    H, b = jtwj_accumulate(
+        corr.source_local, corr.plane_origin, corr.plane_normal, corr.valid,
+        R, pose.t.contiguous(), huber_delta=cfg.icp_huber_delta)
+    inv_sigma = 1.0 / cfg.icp_translation_prior_sigma
+    prior_w = inv_sigma * inv_sigma
+    prior_diag = torch.diag(torch.tensor([0.0, 0.0, 0.0, prior_w, prior_w, prior_w],
+                                         dtype=torch.float32, device=H.device))
+    H = H + prior_diag
+    b = b + prior_w * torch.cat([torch.zeros_like(pose.t), pose.t - guess_t])
+    return H, b
+
+
+def _gn_steps(corr: vm.Correspondence, pose: se3.Pose, guess_t: torch.Tensor,
+              cfg: OdometryConfig):
+    """cfg.icp_inner_iterations Gauss-Newton steps on a fixed
+    correspondence set (cloud_matcher.cpp:111,156-158)."""
+    eye = torch.eye(6, dtype=torch.float32, device=pose.t.device)
+    step_norm = None
+    for _ in range(cfg.icp_inner_iterations):
+        H, b = _normal_equations(corr, pose, guess_t, cfg)
+        H = H + cfg.icp_damping * torch.diag(torch.diag(H)) + 1e-9 * eye
+        delta = -solve_spd_6x6(H, b)
+        pose = se3.apply_delta(pose, delta)
+        step_norm = se3.norm(delta)
+    return pose, step_norm
+
+
+def make_align(cfg: OdometryConfig):
+    """align(map, query_xyz (Q, 3) local, query_valid (Q,), guess)
+    -> IcpResult, mirroring CloudMatcher::align (cloud_matcher.cpp:105-178)
+    with the candidates cached once at the guess pose."""
+    voxel_size = cfg.keyframe_voxel_size
+    max_dist = cfg.icp_max_correspondence_distance
+    delta = cfg.icp_huber_delta
+
+    def align(m: vm.VoxelMap, query_xyz: torch.Tensor, query_valid: torch.Tensor,
+              guess: se3.Pose) -> IcpResult:
+        dev = query_xyz.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        cand = vm.gather_candidates(
+            m, query_xyz, query_valid, guess.t,
+            se3.quat_to_matrix(guess.q), voxel_size=voxel_size)
+        nrm_view = m.nrm  # derived once per scan, not once per round
+        tol = torch.tensor(cfg.icp_convergence_step_norm, **f32)
+
+        pose = guess
+        step_norm = torch.tensor(1e9, **f32)
+        n_matches = torch.zeros((), dtype=torch.int32, device=dev)
+        best_cost = torch.tensor(1e9, **f32)
+        best_pose = guess
+        best_matches = n_matches
+        i, stall, not_converged = 0, 0, True
+        while (i < cfg.icp_max_outer_iterations
+               and (not_converged or i <= cfg.icp_min_outer_iterations - 1)
+               and stall < cfg.icp_stall_exit_rounds):
+            R = se3.quat_to_matrix(pose.q)
+            corr = vm.match_candidates(m, cand, query_xyz, query_valid, pose.t, R,
+                                       max_distance=max_dist, nrm_view=nrm_view)
+            n_matches = torch.sum(corr.valid, dtype=torch.int32)
+            # robust mean cost of this pose on its own correspondence set
+            p_w = se3.rot_pts(corr.source_local, R) + pose.t
+            r = torch.sum((p_w - corr.plane_origin) * corr.plane_normal, dim=-1)
+            absr = torch.abs(r)
+            hub = torch.where(absr <= delta, 0.5 * r * r, delta * (absr - 0.5 * delta))
+            cost_sum = torch.sum(torch.where(corr.valid, hub, 0.0))
+            cost = cost_sum / torch.clamp_min(n_matches.to(torch.float32), 1.0)
+            improved = cost < best_cost * (1.0 - cfg.icp_stall_rel_tolerance)
+            best_pose = se3.pose_where(improved, pose, best_pose)
+            best_matches = torch.where(improved, n_matches, best_matches)
+            best_cost = torch.where(improved, cost, best_cost)
+            pose, step_norm = _gn_steps(corr, pose, guess.t, cfg)
+            i += 1
+            # the round's one device read: its exit conditions
+            not_converged, was_improved = torch.stack(
+                [step_norm >= tol, improved]).tolist()
+            stall = 0 if was_improved else stall + 1
+
+        if cfg.icp_best_pose_exit:
+            converged = step_norm < tol
+            pose = se3.pose_where(converged, pose, best_pose)
+            n_matches = torch.where(converged, n_matches, best_matches)
+        pose = se3.Pose(pose.t, se3.quat_normalize(pose.q))
+        iters = torch.tensor(i, dtype=torch.int32, device=dev)
+        return IcpResult(pose, iters, step_norm, n_matches)
+
+    return align

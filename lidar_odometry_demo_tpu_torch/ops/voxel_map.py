@@ -1,0 +1,539 @@
+"""Sorted fused-row voxel table: the keyframe map, downsampler and
+neighbourhood search (port of the JAX ``ops/voxel_map.py``).
+
+The table format is the JAX package's format v6, slot for slot, so the two
+frameworks' states compare directly (see convert.py):
+
+- voxel coordinates are quantized by truncation toward zero (the
+  reference's `(int64)(x / voxel_size)`, voxel_grid.h:68-75), by a true
+  division;
+- coordinates pack into one non-negative int32 key, 11/11/9 bits for
+  x/y/z, relative to a rebasable integer origin; EMPTY_KEY pads the tail;
+- everything about a voxel lives in one int32 row of `tab` (see _lanes);
+  `keys` and `count` are separate (C,) vectors, sorted by key.
+
+Per-voxel semantics are the reference's: capped point lists keeping the
+first arrivals, the first stored point as eviction anchor, and a
+27-neighbourhood nearest-point search under a strict distance gate with
+first-minimum tie-breaking in (column, z, k) order. When live voxels exceed
+the capacity, the table keeps the C smallest keys.
+
+The TPU layout tricks of the JAX module (2-D (n//128, 128) blocking,
+packed row gathers, the dense column directory with popcount descriptors)
+are not carried over: the neighbourhood lookup is a `torch.searchsorted`
+on the sorted keys, which the JAX module's own index-free branch shows to
+agree with the directory.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from lidar_odometry_demo_tpu_torch.device import true_div
+from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
+from lidar_odometry_demo_tpu_torch.ops.cloud import PointsWithNormals
+from lidar_odometry_demo_tpu_torch.ops.se3 import rot_pts
+
+# int32 key packing: x:[20..30] (11 bits), y:[9..19] (11 bits), z:[0..8] (9 bits)
+_XB, _YB, _ZB = 11, 11, 9
+_XOFF, _YOFF, _ZOFF = 1 << (_XB - 1), 1 << (_YB - 1), 1 << (_ZB - 1)
+EMPTY_KEY = 0x7FFFFFFF
+
+# column window of the keyframe map: x/y within +-_GHALF voxels of the
+# origin, z within +-_DIR_ZHALF (the JAX module's directory windows)
+_GHALF = 512
+_DIR_ZHALF = 128
+_DIR_ZLO = _ZOFF - _DIR_ZHALF
+
+# (dx, dy) column scan order: the reference's neighbour order
+# (voxel_grid.h:175-177), which the tie-break follows
+_COLUMN_OFFSETS = np.array(
+    [[ix, iy, 0] for ix in (-1, 0, 1) for iy in (-1, 0, 1)], np.int32)
+
+
+def _align8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _lanes(K: int):
+    """Lane layout of one table row for max_points = K (format v6).
+
+    [0 : K)          stored point x coords, f32 bits (planar)
+    [K : 2K)         y coords
+    [2K : 3K)        z coords
+    [3K]             the count as f32 bits (the search copy; the
+                     authoritative count is VoxelMap.count)
+    [RW : RW + 3K)   normals, f32 bits, interleaved (x, y, z) per point;
+                     RW = align8(3K + 1)
+    [MB : MB + 3)    anchor = first stored point; MB = RW + 3K
+    width W = align8(MB + 3)   (128 for K = 20)
+    """
+    RW = _align8(3 * K + 1)
+    MB = RW + 3 * K
+    W = _align8(MB + 3)
+    return RW, MB, W
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.float32)
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical shift right of int32 (torch's >> is arithmetic)."""
+    return (x >> s) & ((1 << (32 - s)) - 1)
+
+
+class VoxelMap(NamedTuple):
+    """Fixed-capacity voxel table, rows sorted by packed key.
+
+    tab:    (C, W) int32 fused rows (see _lanes)
+    keys:   (C,) int32 packed key per row; EMPTY_KEY pads the tail
+    count:  (C,) int32 stored-point count per row
+    origin: (3,) int32 integer-index origin the keys are relative to
+    kdim:   (1, K) int32 marker carrying max_points in its shape
+    """
+
+    tab: torch.Tensor
+    keys: torch.Tensor
+    count: torch.Tensor
+    origin: torch.Tensor
+    kdim: torch.Tensor
+
+    @property
+    def max_points(self) -> int:
+        return self.kdim.shape[-1]
+
+    @property
+    def capacity(self) -> int:
+        return self.tab.shape[-2]
+
+    @property
+    def anchor(self) -> torch.Tensor:
+        _, MB, _ = _lanes(self.max_points)
+        return _f32(self.tab[..., MB : MB + 3])
+
+    @property
+    def pts(self) -> torch.Tensor:
+        K = self.max_points
+        planar = _f32(self.tab[..., : 3 * K]).reshape(*self.tab.shape[:-1], 3, K)
+        return planar.transpose(-1, -2)  # (..., K, 3)
+
+    @property
+    def nrm(self) -> torch.Tensor:
+        K = self.max_points
+        RW, _, _ = _lanes(K)
+        return _f32(self.tab[..., RW : RW + 3 * K]).reshape(*self.tab.shape[:-1], K, 3)
+
+
+class Correspondence(NamedTuple):
+    """Match of each query point against the map (voxel_grid.h:40-46)."""
+
+    source_local: torch.Tensor  # (Q, 3) query point in its local frame
+    plane_origin: torch.Tensor  # (Q, 3) matched stored point
+    plane_normal: torch.Tensor  # (Q, 3) matched stored normal
+    valid: torch.Tensor         # (Q,)
+
+
+def voxel_indices(xyz: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    """Integer voxel index by truncation toward zero (voxel_grid.h:68-75)."""
+    return torch.trunc(true_div(xyz, voxel_size)).to(torch.int32)
+
+
+def _in_map_window(rx, ry, rz) -> torch.Tensor:
+    return ((rz >= _DIR_ZLO) & (rz < _DIR_ZLO + 2 * _DIR_ZHALF)
+            & (rx >= _XOFF - _GHALF) & (rx < _XOFF + _GHALF)
+            & (ry >= _YOFF - _GHALF) & (ry < _YOFF + _GHALF))
+
+
+def _pack(rx, ry, rz) -> torch.Tensor:
+    return (rx << (_YB + _ZB)) | (ry << _ZB) | rz
+
+
+def pack_keys(idx: torch.Tensor, origin: torch.Tensor, valid: torch.Tensor,
+              map_window: bool = False) -> torch.Tensor:
+    """Relative integer indices -> sortable int32 keys; out-of-window and
+    invalid entries -> EMPTY_KEY. map_window=True restricts the domain to
+    the keyframe map's column window (every keyframe insert uses it, so the
+    table never holds a key the neighbourhood search cannot see)."""
+    rel = idx - origin
+    rx = rel[..., 0] + _XOFF
+    ry = rel[..., 1] + _YOFF
+    rz = rel[..., 2] + _ZOFF
+    in_range = ((rx >= 0) & (rx < (1 << _XB) - 1)
+                & (ry >= 0) & (ry < (1 << _YB) - 1)
+                & (rz >= 0) & (rz < (1 << _ZB) - 1))
+    if map_window:
+        in_range = in_range & _in_map_window(rx, ry, rz)
+    key = _pack(rx, ry, rz)
+    return torch.where(valid & in_range, key, EMPTY_KEY).to(torch.int32)
+
+
+def _shift_key(delta: torch.Tensor) -> torch.Tensor:
+    """Key-space shift of an origin move by integer `delta` (uniform, so it
+    preserves the sorted order)."""
+    return (delta[0] << (_YB + _ZB)) + (delta[1] << _ZB) + delta[2]
+
+
+def map_init(capacity: int, max_points: int, device) -> VoxelMap:
+    _, _, W = _lanes(max_points)
+    i32 = dict(dtype=torch.int32, device=device)
+    return VoxelMap(
+        tab=torch.zeros((capacity, W), **i32),
+        keys=torch.full((capacity,), EMPTY_KEY, **i32),
+        count=torch.zeros((capacity,), **i32),
+        origin=torch.zeros((3,), **i32),
+        kdim=torch.zeros((1, max_points), **i32),
+    )
+
+
+def map_size(m: VoxelMap) -> torch.Tensor:
+    """Number of occupied voxels (voxel_grid.h:248-251)."""
+    return torch.sum(m.keys != EMPTY_KEY, dtype=torch.int32)
+
+
+def _group_structure(sorted_keys: torch.Tensor):
+    """(leader, rank, start) of each element of a sorted key array: first of
+    its equal-key run (EMPTY excluded), position in the run, run start."""
+    n = sorted_keys.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=sorted_keys.device)
+    valid = sorted_keys != EMPTY_KEY
+    prev = torch.cat([sorted_keys.new_full((1,), EMPTY_KEY), sorted_keys[:-1]])
+    leader = valid & (sorted_keys != prev)
+    if n == 0:
+        return leader, pos, pos
+    start = torch.cummax(torch.where(leader, pos, -1), dim=0).values
+    return leader, pos - start, start
+
+
+# ---------------------------------------------------------------------------
+# downsampling grid (reference: VoxelGrid(voxel, 1) as a filter,
+# lidar_odometry.cpp:37-47)
+# ---------------------------------------------------------------------------
+
+def downsample(pts: PointsWithNormals, voxel_size: float, budget: int):
+    """One point per voxel, the first in input order (voxel_grid.h:77-93),
+    compacted to a fixed `budget` in key order. Scan-local (zero origin).
+
+    Returns (points, dropped): dropped is the number of voxel leaders beyond
+    the budget (int32 scalar); the kept leaders are the `budget` smallest
+    keys.
+    """
+    n = pts.capacity
+    dev = pts.xyz.device
+    take = min(budget, n)
+    pad = budget - take
+    zero_origin = torch.zeros((3,), dtype=torch.int32, device=dev)
+    keys = pack_keys(voxel_indices(pts.xyz, voxel_size), zero_origin, pts.valid)
+    sorted_keys, order = torch.sort(keys, stable=True)  # ties keep input order
+    leader, _, _ = _group_structure(sorted_keys)
+    n_leaders = torch.sum(leader, dtype=torch.int32)
+    comp = torch.argsort((~leader).to(torch.int8), stable=True)[:take]
+    src = order[comp]
+    ok = leader[comp] & (torch.arange(take, device=dev) < n_leaders)
+    xyz = torch.where(ok[:, None], pts.xyz[src], 0.0)
+    normal = torch.where(ok[:, None], pts.normal[src], 0.0)
+    if pad:
+        xyz = torch.cat([xyz, xyz.new_zeros((pad, 3))])
+        normal = torch.cat([normal, normal.new_zeros((pad, 3))])
+        ok = torch.cat([ok, ok.new_zeros((pad,))])
+    return (PointsWithNormals(xyz=xyz, normal=normal, valid=ok),
+            torch.clamp_min(n_leaders - take, 0))
+
+
+# ---------------------------------------------------------------------------
+# neighbourhood candidate cache
+# ---------------------------------------------------------------------------
+
+def _neighborhood_slots(m: VoxelMap, q_world: torch.Tensor,
+                        query_valid: torch.Tensor, *, voxel_size: float):
+    """(base (9, Q), n_present (9, Q)) int32 for each query's 3x3 columns in
+    _COLUMN_OFFSETS order.
+
+    Within a column the sorted table is ascending in z, so the present
+    voxels among z-1 / z / z+1 occupy the consecutive slots base ..
+    base + n_present - 1, with base the first slot at z >= z_query - 1 (z
+    clipped to the map's z window). Columns outside the map window, or of
+    invalid queries, get base C-1 and n_present 0. Where a column holds no
+    voxel of the window, base is the insertion slot (the JAX directory
+    gives C-1 there); such rows are masked by n_present = 0. A searchsorted
+    on the sorted keys takes the place of the JAX module's dense column
+    directory and z-occupancy descriptors.
+    """
+    C = m.capacity
+    dev = q_world.device
+    rel = voxel_indices(q_world, voxel_size) - m.origin            # (Q, 3)
+    off = torch.from_numpy(_COLUMN_OFFSETS).to(dev)
+    rx = rel[None, :, 0] + off[:, 0, None] + _XOFF                 # (9, Q)
+    ry = rel[None, :, 1] + off[:, 1, None] + _YOFF
+    zd = (rel[:, 2] + _DIR_ZHALF).expand(9, -1)                    # directory z
+    col_ok = (query_valid[None, :]
+              & (rx >= _XOFF - _GHALF) & (rx < _XOFF + _GHALF)
+              & (ry >= _YOFF - _GHALF) & (ry < _YOFF + _GHALF))
+    rxc = torch.where(col_ok, rx, _XOFF)
+    ryc = torch.where(col_ok, ry, _YOFF)
+    z0 = torch.clamp(zd - 1, 0, 2 * _DIR_ZHALF - 1)
+    start_key = _pack(rxc, ryc, z0 + _DIR_ZLO).to(torch.int32)
+    pos = torch.searchsorted(m.keys, start_key.reshape(-1), out_int32=True)
+    base = torch.clamp_max(pos.reshape(9, -1), C - 1)
+    base = torch.where(col_ok, base, C - 1)
+
+    keys_pad = torch.cat([m.keys, m.keys.new_full((3,), EMPTY_KEY)])
+    slot = base
+    n_present = torch.zeros_like(base)
+    for dz in (-1, 0, 1):
+        z = zd + dz
+        key = _pack(rxc, ryc, torch.clamp(z, 0, 2 * _DIR_ZHALF - 1) + _DIR_ZLO)
+        here = (col_ok & (z >= 0) & (z < 2 * _DIR_ZHALF)
+                & (keys_pad[slot.long()] == key))
+        n_present = n_present + here.to(torch.int32)
+        slot = slot + here.to(torch.int32)
+    return base, n_present
+
+
+class CandidateSet(NamedTuple):
+    """Per-query 27-voxel candidate cache for the ICP loop, gathered once
+    per scan at the guess pose (the map is frozen during ICP).
+
+    rows_z:    3-tuple of (9*Q, RW) int32 raw candidate rows for the
+               z-1 / z / z+1 slot of each query column, column-major (9, Q)
+               flat order; slot s of flat column j is real iff
+               s < n_present.reshape(-1)[j]
+    base:      (9, Q) table slot of each column's first present voxel
+    n_present: (9, Q) how many of the z-1/z/z+1 voxels exist
+    """
+
+    rows_z: tuple
+    base: torch.Tensor
+    n_present: torch.Tensor
+
+
+def gather_candidates(m: VoxelMap, query_local: torch.Tensor,
+                      query_valid: torch.Tensor, pose_t: torch.Tensor,
+                      pose_R: torch.Tensor, *, voxel_size: float) -> CandidateSet:
+    """Gather every query's 27-voxel candidates: three row gathers of the
+    search lanes ([pts planar | cnt_f]) at slots base, base+1, base+2
+    (clamped to the table; slots at or past n_present are masked)."""
+    RW, _, _ = _lanes(m.max_points)
+    q_world = rot_pts(query_local, pose_R) + pose_t
+    base, n_present = _neighborhood_slots(m, q_world, query_valid,
+                                          voxel_size=voxel_size)
+    bflat = base.reshape(-1).long()
+    lanes = m.tab[:, :RW]
+    rows_z = tuple(lanes[torch.clamp_max(bflat + s, m.capacity - 1)] for s in range(3))
+    return CandidateSet(rows_z=rows_z, base=base, n_present=n_present)
+
+
+def match_candidates(m: VoxelMap, cand: CandidateSet, query_local: torch.Tensor,
+                     query_valid: torch.Tensor, pose_t: torch.Tensor,
+                     pose_R: torch.Tensor, *, max_distance: float,
+                     nrm_view: torch.Tensor) -> Correspondence:
+    """Nearest cached candidate under the distance gate at the current pose.
+
+    First minimum in (column, z, k) order (voxel_grid.h:175-196), computed
+    by kernels.correspondence.match_rows; the winner's normal comes from the
+    table at the winning slot. `nrm_view`: m.nrm, derived once per scan.
+    """
+    K = m.max_points
+    C = m.capacity
+    q_world = rot_pts(query_local, pose_R) + pose_t
+    max_d2 = float(np.float32(max_distance * max_distance))
+    plane_origin, loc, best_d2 = match_rows(
+        q_world, cand.rows_z, cand.n_present, max_d2=max_d2, max_points=K)
+    c_idx = loc // (3 * K)
+    zk_idx = loc % (3 * K)
+    k_idx = zk_idx % K
+    valid = query_valid & (best_d2 < torch.tensor(max_d2, dtype=torch.float32,
+                                                  device=best_d2.device))
+    base_win = torch.gather(cand.base, 0, c_idx.long()[None, :])[0]
+    best_slot = torch.clamp_max(base_win + zk_idx // K, C - 1)
+    plane_normal = nrm_view[best_slot.long(), k_idx.long()]
+    v = valid[:, None]
+    return Correspondence(
+        source_local=query_local,
+        plane_origin=torch.where(v, plane_origin, 0.0),
+        plane_normal=torch.where(v, plane_normal, 0.0),
+        valid=valid,
+    )
+
+
+# ---------------------------------------------------------------------------
+# per-scan maintenance: evict + rebase + insert with one sort and one row
+# gather (reference radiusCleanup + addCloud, voxel_grid.h:236-246, 77-93)
+# ---------------------------------------------------------------------------
+
+def _update_impl(m: VoxelMap, new: PointsWithNormals, new_origin: torch.Tensor,
+                 evict: torch.Tensor | None, voxel_size: float) -> VoxelMap:
+    """Shared evict + insert body.
+
+    1. Keys shift uniformly to the new origin; evicted voxels are
+       tombstoned (count 0, key kept so a same-scan re-insert reuses the
+       row) and dropped unless an incoming point touches them.
+    2. Incoming points, stably sorted by key (first arrivals kept at the
+       cap), are written into the extended row space [tab ++ fresh rows]
+       with one scatter of unique targets (points, normals, anchors, the
+       f32 count lane): found voxels append at lanes [count, K), fresh
+       voxels build a row at C + leader.
+    3. One stable sort of the (C + N_in) keys, one C-row gather: the C
+       smallest keys win at overflow.
+    """
+    C, K = m.capacity, m.max_points
+    RW, MB, W = _lanes(K)
+    dev = m.tab.device
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    shift = _shift_key(new_origin - m.origin)
+    occupied = m.keys != EMPTY_KEY
+    keys1 = torch.where(occupied, m.keys - shift, EMPTY_KEY).to(torch.int32)
+    if evict is None:
+        count1 = m.count
+        evicted = torch.zeros_like(occupied)
+    else:
+        evicted = occupied & evict
+        count1 = torch.where(evicted, 0, m.count)
+
+    n = new.xyz.shape[0]
+    keys_in = pack_keys(voxel_indices(new.xyz, voxel_size), new_origin,
+                        new.valid, map_window=True)
+    order_in = torch.argsort(keys_in, stable=True)
+    skeys = keys_in[order_in]
+    sxyz = new.xyz[order_in]
+    snrm = new.normal[order_in]
+    leader, rank, start = _group_structure(skeys)
+    valid_e = skeys != EMPTY_KEY
+
+    # locate each group in the old (shifted) table
+    pos = torch.searchsorted(keys1, skeys, out_int32=True)
+    pos_c = torch.clamp_max(pos, C - 1)
+    found = valid_e & (keys1[pos_c.long()] == skeys)
+
+    # rows re-touched by an incoming group (tombstone reuse); targets unique
+    touched = torch.zeros((C,), dtype=torch.bool, device=dev)
+    touched[pos_c[leader & found].long()] = True
+    live = (occupied & ~evicted) | touched
+    keys2 = torch.where(live, keys1, EMPTY_KEY).to(torch.int32)
+    count1 = torch.where(touched & evicted, 0, count1)
+
+    tab_ext = torch.cat([m.tab, m.tab.new_zeros((n, W))], dim=0)
+
+    # per-element write positions, broadcast from each group's leader
+    start_l = start.long()
+    base_l = torch.where(found, count1[pos_c.long()], 0)
+    ext_l = torch.where(found, pos_c, C + start)
+    base = base_l[start_l]
+    ext_slot = ext_l[start_l]
+    write_idx = base + rank
+    keep = valid_e & (write_idx < K)
+
+    # per-leader group size from the next run boundary
+    ar = torch.arange(n, **i32)
+    boundary = torch.ones((n,), dtype=torch.bool, device=dev)
+    if n > 1:
+        boundary[1:] = skeys[1:] != skeys[:-1]
+    nxt = torch.flip(torch.cummin(torch.flip(
+        torch.where(boundary, ar, n), [0]), dim=0).values, [0])
+    nxt_strict = torch.cat([nxt[1:], torch.full((1,), n, **i32)])
+    group_size = torch.where(leader, nxt_strict - ar, 0)
+    new_count = torch.clamp_max(base + group_size, K).to(torch.int32)
+    anch = leader & (base == 0)
+
+    # one scatter of unique (row, lane) targets into the flat table
+    l3 = torch.arange(3, **i32)[None, :]
+    rows3 = ext_slot[:, None].expand(n, 3)
+    cnt_bits = _i32(new_count.to(torch.float32))[:, None]
+    groups = (
+        # (rows, lanes, int32 values, mask)
+        (rows3, write_idx[:, None] + l3 * K, _i32(sxyz), keep[:, None].expand(n, 3)),
+        (rows3, (RW + 3 * write_idx)[:, None] + l3, _i32(snrm), keep[:, None].expand(n, 3)),
+        (rows3, (MB + l3).expand(n, 3), _i32(sxyz), anch[:, None].expand(n, 3)),
+        (ext_slot[:, None], torch.full((n, 1), 3 * K, **i32), cnt_bits, leader[:, None]),
+    )
+    flat_idx = torch.cat([(g[0].long() * W + g[1])[g[3]] for g in groups])
+    vals = torch.cat([g[2][g[3]] for g in groups])
+    tab_ext.view(-1)[flat_idx] = vals
+
+    # post-update key / count vectors over the extended rows
+    fresh_keys = torch.where(leader & ~found & keep, skeys, EMPTY_KEY).to(torch.int32)
+    keys_ext = torch.cat([keys2, fresh_keys])
+    count_ext = torch.cat([count1, count1.new_zeros((n,))])
+    count_ext[ext_slot[leader].long()] = new_count[leader]
+
+    sorted_keys, order = torch.sort(keys_ext, stable=True)
+    oc = order[:C]
+    return VoxelMap(tab=tab_ext[oc], keys=sorted_keys[:C], count=count_ext[oc],
+                    origin=new_origin, kdim=m.kdim)
+
+
+def map_insert(m: VoxelMap, new: PointsWithNormals, *, voxel_size: float) -> VoxelMap:
+    """Insert world-frame points with first-come-kept capping."""
+    return _update_impl(m, new, m.origin, None, voxel_size)
+
+
+def _evict_mask(m: VoxelMap, center: torch.Tensor, new_origin: torch.Tensor,
+                radius: float) -> torch.Tensor:
+    """Anchor farther than `radius` from `center`, or key outside the map
+    window once rebased to `new_origin`."""
+    anchor = m.anchor
+    dx = anchor[:, 0] - center[0]
+    dy = anchor[:, 1] - center[1]
+    dz = anchor[:, 2] - center[2]
+    d2 = dx * dx + dy * dy + dz * dz
+    shifted = m.keys - _shift_key(new_origin - m.origin)
+    rz = shifted & ((1 << _ZB) - 1)
+    rx = _srl(shifted, _YB + _ZB)
+    ry = _srl(shifted, _ZB) & ((1 << _YB) - 1)
+    return (d2 > radius * radius) | ~_in_map_window(rx, ry, rz)
+
+
+def radius_cleanup(m: VoxelMap, center: torch.Tensor, *, radius: float,
+                   voxel_size: float) -> VoxelMap:
+    """Erase voxels whose first stored point is farther than `radius` from
+    `center` (voxel_with_planes.h:32-35), re-basing the origin to it."""
+    new_origin = voxel_indices(center, voxel_size)
+    z = center.new_zeros((0, 3))
+    empty = PointsWithNormals(xyz=z, normal=z,
+                              valid=torch.zeros((0,), dtype=torch.bool, device=z.device))
+    evict = _evict_mask(m, center, new_origin, radius)
+    return _update_impl(m, empty, new_origin, evict, voxel_size)
+
+
+def map_update(m: VoxelMap, new: PointsWithNormals, center: torch.Tensor, *,
+               voxel_size: float, radius: float) -> VoxelMap:
+    """radius_cleanup then map_insert in one sort pass (the reference's
+    per-scan sequence, lidar_odometry.cpp:67-70)."""
+    new_origin = voxel_indices(center, voxel_size)
+    evict = _evict_mask(m, center, new_origin, radius)
+    return _update_impl(m, new, new_origin, evict, voxel_size)
+
+
+# ---------------------------------------------------------------------------
+# exports (reference getCloud / getSparseCloudWithoutNormals,
+# voxel_grid.h:112-162) — host-side numpy helpers
+# ---------------------------------------------------------------------------
+
+def get_cloud(m: VoxelMap):
+    """All stored (point, normal) pairs as numpy arrays."""
+    keys = m.keys.cpu().numpy()
+    count = m.count.cpu().numpy()
+    pts = m.pts.cpu().numpy()
+    nrm = m.nrm.cpu().numpy()
+    out_p, out_n = [], []
+    for i in np.nonzero(keys != EMPTY_KEY)[0]:
+        c = count[i]
+        out_p.append(pts[i, :c])
+        out_n.append(nrm[i, :c])
+    if not out_p:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32)
+    return np.concatenate(out_p), np.concatenate(out_n)
+
+
+def get_sparse_cloud(m: VoxelMap):
+    """One point per voxel (the first stored), numpy."""
+    sel = m.keys.cpu().numpy() != EMPTY_KEY
+    return m.anchor.cpu().numpy()[sel, :]

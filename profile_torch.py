@@ -1,0 +1,143 @@
+"""Profile the PyTorch/CUDA port's main path on one GPU.
+
+    python3 profile_torch.py [--scans N] [--out FILE]
+
+Runs the 40-scan bench drive (seed 42, 5 m/s, full `OdometryConfig()`)
+through `LidarOdometry(device="cuda")` once to warm up, then again with the
+pipeline's stages (deskew, classify, downsample, ICP, map update) wrapped
+in device synchronisations to time each stage's wall time over scans
+1..39, and profiles N steady-state scans (default 5, scans 30..34) of a
+third pass with `torch.profiler`. Prints the card, per-stage ms/scan, wall
+time per scan, the device's busy time and idle share over the profiled
+window, device kernel launches per scan, and the operations with the most
+device time; with --out, writes the full tables (by device and by host
+time) to FILE. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import subprocess
+import sys
+import time
+
+
+def stage_timer(stage_s: dict, name: str, fn):
+    """fn wrapped to add its synchronised wall time to stage_s[name]."""
+    import torch
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        stage_s[name] += time.perf_counter() - t0
+        return out
+
+    return timed
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scans", type=int, default=5)
+    ap.add_argument("--out", help="file for the full profiler tables")
+    args = ap.parse_args()
+    n_prof = args.scans
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch: no CUDA device is available", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
+    from lidar_odometry_demo_tpu_torch.ops import classifier, icp, preprocess
+    from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
+    from lidar_odometry_demo_tpu_torch.ops.cloud import scan_from_numpy
+    from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"card: {card}")
+    cfg = OdometryConfig()
+    dev = torch.device("cuda")
+    drive = simulate_sequence(num_scans=40, width=cfg.scan_width, seed=42,
+                              speed=5.0, yaw_rate=0.08)
+    scans = [scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
+                             cfg.max_raw_points, dev) for s in drive.scans]
+    warm = LidarOdometry(cfg, device=dev)
+    for scan in scans:
+        warm.process_scan(scan)
+
+    # stage wall times: the pipeline looks these functions up at call time
+    # (make_align when the step is built), so wrapping the module attributes
+    # times every call of the next LidarOdometry
+    stage_s = collections.Counter()
+    patched = [(preprocess, "deskew"), (classifier, "classify"), (vm, "downsample"),
+               (vm, "map_update")]
+    originals = {(mod, name): getattr(mod, name) for mod, name in patched}
+    make_align = icp.make_align
+    for mod, name in patched:
+        setattr(mod, name, stage_timer(stage_s, name, originals[(mod, name)]))
+    icp.make_align = lambda c: stage_timer(stage_s, "icp", make_align(c))
+    staged = LidarOdometry(cfg, device=dev)
+    staged.process_scan(scans[0])  # the first scan skips ICP
+    stage_s.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for scan in scans[1:]:
+        staged.process_scan(scan)
+    torch.cuda.synchronize()
+    staged_wall = time.perf_counter() - t0
+    for (mod, name), fn in originals.items():
+        setattr(mod, name, fn)
+    icp.make_align = make_align
+    n_staged = len(scans) - 1
+    parts = ", ".join(f"{k} {1e3 * v / n_staged:.3f}" for k, v in stage_s.items())
+    print(f"stages (ms/scan, synchronised, scans 1..39): {parts}; rest "
+          f"{1e3 * (staged_wall - sum(stage_s.values())) / n_staged:.3f}; "
+          f"total {1e3 * staged_wall / n_staged:.3f}")
+
+    odo = LidarOdometry(cfg, device=dev)
+    for scan in scans[:30]:
+        odo.process_scan(scan)
+    torch.cuda.synchronize()
+
+    window = scans[30:30 + n_prof]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rounds = 0
+        for scan in window:
+            rounds += int(odo.process_scan(scan).icp_iterations)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # the device's own events (kernels, copies); operator rows repeat
+    # their kernels' time, so they are left out of the sums
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in device)
+    launches = sum(e.count for e in device)
+    n = len(window)
+    print(f"profile: {n} scans, {rounds} ICP rounds, wall {1e3 * wall / n:.3f} ms/scan "
+          f"(with the profiler on)")
+    print(f"profile: device busy {device_us / 1e3 / n:.3f} ms/scan, idle share "
+          f"{1 - device_us / 1e6 / wall:.4f}, {launches / n:.1f} device kernel launches/scan")
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    print("\n".join(table.splitlines()[:20]))
+    if not args.out:
+        return 0
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(f"card: {card}\n")
+        f.write(events.table(sort_by="self_device_time_total", row_limit=80))
+        f.write("\n\nby host time:\n")
+        f.write(events.table(sort_by="self_cpu_time_total", row_limit=40))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,121 @@
+"""The port's CUDA kernels and main path on the card.
+
+Every test here needs a CUDA device and skips without one. The file
+imports neither JAX nor the JAX package, so it also runs on a GPU machine
+without JAX, with the repository's conftest left out:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_card.py
+
+Tolerances: K1 index equal where valid, point and d2 within atol 1e-6 of
+its plain version; K2 within rtol 2e-5 / atol 1e-4 of its plain version
+and bitwise equal across two runs; the TINY drive on the card within 1e-4 m
+of the same drive through the port on the CPU, with equal ICP iteration
+counts.
+"""
+
+import numpy as np
+import pytest
+import torch
+from scipy.spatial.transform import Rotation
+
+from lidar_odometry_demo_tpu_torch.config import TINY
+from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
+from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows, match_rows_plain
+from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate, jtwj_plain
+from lidar_odometry_demo_tpu_torch.ops.cloud import scan_from_numpy
+from lidar_odometry_demo_tpu_torch.ops.voxel_map import _lanes
+from lidar_odometry_demo_tpu_torch.pipeline import odometry
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(1234)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+
+
+def _candidates(rng, Q, K):
+    RW, _, _ = _lanes(K)
+    q = rng.uniform(-5, 5, (Q, 3)).astype(np.float32)
+    rows = np.zeros((3, 9, Q, RW), np.float32)
+    pts = q[None, None, :, None, :] + rng.normal(0, 0.25, (3, 9, Q, K, 3))
+    for i in range(3):
+        rows[..., i * K:(i + 1) * K] = pts[..., i]
+    rows[..., 3 * K] = rng.integers(0, K + 1, (3, 9, Q))
+    rows_z = tuple(torch.from_numpy(rows[s].reshape(9 * Q, RW).view(np.int32).copy()).cuda()
+                   for s in range(3))
+    n_present = torch.from_numpy(rng.integers(0, 4, (9, Q)).astype(np.int32)).cuda()
+    return torch.from_numpy(q).cuda(), rows_z, n_present
+
+
+def _system(rng, Q):
+    sl = rng.uniform(-20, 20, (Q, 3)).astype(np.float32)
+    pn = rng.normal(0, 1, (Q, 3)).astype(np.float32)
+    pn /= np.linalg.norm(pn, axis=1, keepdims=True)
+    R = Rotation.from_euler("xyz", [0.02, -0.01, 0.3]).as_matrix().astype(np.float32)
+    t = np.array([1.5, -0.2, 0.1], np.float32)
+    po = (sl @ R.T + t + rng.normal(0, 0.03, (Q, 3))).astype(np.float32)
+    valid = rng.random(Q) < 0.8
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (sl, po, pn, valid, R, t)]
+
+
+def test_match_rows_kernel_matches_plain(rng):
+    _need_card()
+    max_d2 = float(np.float32(0.09))
+    q, rows_z, n_present = _candidates(rng, 8192, 20)
+    before = match_rows.launches
+    ko, ki, kd = match_rows(q, rows_z, n_present, max_d2=max_d2, max_points=20)
+    assert match_rows.launches == before + 1
+    po, pi, pd = match_rows_plain(q, rows_z, n_present, max_d2=max_d2, max_points=20)
+    valid = pd < max_d2
+    assert int(valid.sum()) > 4096
+    assert torch.equal(ki[valid], pi[valid])
+    assert torch.allclose(kd, pd, atol=1e-6, rtol=0)
+    assert torch.allclose(ko[valid], po[valid], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("Q", [8192, 8115, 1])
+def test_jtwj_kernel_matches_plain_and_repeats(rng, Q):
+    _need_card()
+    args = _system(rng, Q)
+    H, b = jtwj_accumulate(*args, huber_delta=0.15)
+    H2, b2 = jtwj_accumulate(*args, huber_delta=0.15)
+    Hp, bp = jtwj_plain(*args, huber_delta=0.15)
+    assert torch.equal(H, H2) and torch.equal(b, b2)
+    assert torch.allclose(H, Hp, rtol=2e-5, atol=1e-4)
+    assert torch.allclose(b, bp, rtol=2e-5, atol=1e-4)
+
+
+def test_wrappers_check_their_inputs_on_card(rng):
+    _need_card()
+    q, rows_z, n_present = _candidates(rng, 64, 20)
+    with pytest.raises(ValueError, match="int32"):
+        match_rows(q, rows_z, n_present.long(), max_d2=0.09, max_points=20)
+    with pytest.raises(ValueError, match="contiguous"):
+        match_rows(q.T.contiguous().T, rows_z, n_present, max_d2=0.09, max_points=20)
+    sl, po, pn, valid, R, t = _system(rng, 64)
+    with pytest.raises(ValueError, match="shape"):
+        jtwj_accumulate(sl, po, pn, valid[:32], R, t, huber_delta=0.15)
+
+
+def test_tiny_drive_on_card_matches_cpu():
+    _need_card()
+    d = simulate_sequence(num_scans=5, width=TINY.scan_width, seed=3, speed=2.0,
+                          yaw_rate=0.05, ramp_time=0.0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        scans = [scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
+                                 TINY.max_raw_points, dev) for s in d.scans]
+        before = (match_rows.launches, jtwj_accumulate.launches)
+        _, diag = odometry.make_sequence_runner(TINY)(odometry.init_state(TINY, dev), scans)
+        launched = (match_rows.launches - before[0], jtwj_accumulate.launches - before[1])
+        runs[dev] = (diag.pose.t.cpu().numpy(), diag.icp_iterations.cpu().numpy(), launched)
+    (t_cpu, it_cpu, _), (t_gpu, it_gpu, launched) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(t_gpu, t_cpu, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(it_gpu, it_cpu)
+    assert launched == (it_gpu.sum(), TINY.icp_inner_iterations * it_gpu.sum())
