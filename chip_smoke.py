@@ -1,25 +1,44 @@
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each of which raises (non-zero exit) on failure:
 
 1. card: name and power limit (nvidia-smi); build the CUDA kernels from
-   the sources in this checkout and print the build time;
-2. each kernel against its plain PyTorch version on the card, at the
+   the sources in this checkout (one nvcc per source, in parallel) and
+   print the build time;
+2. K1 and K2 against their plain PyTorch versions on the card, at the
    shapes of the main path (K1 match_rows: Q = 8192, K = 20, index equal
    where valid, point and d2 within 1e-6; K2 jtwj_accumulate: Q = 8192 and
    a ragged Q, rtol 2e-5 / atol 1e-4, two runs bitwise equal), with CUDA
    event times of both;
 3. the main path, `LidarOdometry(device="cuda")` at the full VLP16
    configuration `OdometryConfig()`, on the 40-scan bench drive (seed 42,
-   5 m/s): one warm-up pass, one timed pass. It fails if a kernel was not
-   launched, if the launch counts do not match the ICP schedule (K1 once
-   per outer round, K2 four times), if aligned ATE against ground truth
-   exceeds 0.03 m, or if any scan diverged.
+   5 m/s, 0.08 rad/s): one warm-up pass, one timed pass. It fails if a
+   kernel was not launched, if the launch counts do not match the schedule
+   (K1 once per ICP round, K2 four times, K3 once per ICP scan and once per
+   map_update), if aligned ATE against ground truth exceeds 0.03 m, or if
+   any scan diverged;
+4. K3 search_sorted against its plain version and torch.searchsorted on the
+   card, index equal (max error 0): at the main path's two lookups (the
+   map's 131,072 keys after phase 3 with the 73,728 neighbourhood queries
+   and the 16,384 sorted map_update queries of one more scan), on the TPU
+   script's own fixture (131,072 keys, 221,184 queries, rng seed 0), on the
+   edges (below, at and just above keys[0], equal to a key, in the
+   EMPTY_KEY run, above every key) and with no queries; CUDA event times of
+   the kernel, the plain version and torch.searchsorted;
+5. the strict reference path, `reference_parity(OdometryConfig())` (ICP
+   re-searches the map every round, up to 35 rounds, backwards deskew
+   translation), through `LidarOdometry(device="cuda")` on the same drive:
+   one timed pass, with the checks of phase 3 and K3 once per ICP round
+   and once per map_update;
+6. the CLI on the card, in-process: `sim --scans 5` at full width with a
+   TUM and a keyframe PCD written under chiprun_out/cli_smoke/; the TUM
+   must hold 5 monotone rows and the PCD POINTS > 0, and every kernel must
+   have launched.
 
-Prints a `kernels` JSON line, then as its last line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+Prints a `kernels` JSON line, the card's name and power limit, then as its
+last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Exits non-zero without a result when no CUDA device is present.
 """
 
@@ -211,21 +230,37 @@ def check_jtwj(rng, device) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 3: the main path
+# phases 3 and 5: the main path and the strict reference path
 # --------------------------------------------------------------------------
 
-def run_main_path(device) -> dict:
-    import torch
+def counters() -> dict:
+    """The launch-counted kernel wrappers, by kernel name."""
+    from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate
+    from lidar_odometry_demo_tpu_torch.kernels.search import search_sorted
+
+    return {"match_rows": match_rows, "jtwj_accumulate": jtwj_accumulate,
+            "search_sorted": search_sorted}
+
+
+def zero_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def bench_drive(device) -> dict:
+    """The 40-scan bench drive at full width, uploaded, with its ground
+    truth and the JAX package's pinned trajectory."""
     from scipy.spatial.transform import Rotation
 
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig
     from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
-    from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse, read_tum
-    from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
-    from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate
+    from lidar_odometry_demo_tpu_torch.io.trajectory import read_tum
     from lidar_odometry_demo_tpu_torch.ops.cloud import scan_from_numpy
-    from lidar_odometry_demo_tpu_torch.ops.voxel_map import map_size
-    from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
 
     cfg = OdometryConfig()
     num_scans = 40
@@ -236,60 +271,249 @@ def run_main_path(device) -> dict:
                              cfg.max_raw_points, device) for s in drive.scans]
     log(f"main path: simulated and uploaded {num_scans} scans in "
         f"{time.perf_counter() - t0:.1f} s")
+    g0 = drive.gt_q[0]
+    g0_R = Rotation.from_quat([g0[1], g0[2], g0[3], g0[0]])
+    _, ref_t, _ = read_tum(os.path.join(REPO, "benchmarks", "BASELINE_REF.tum"))
+    return dict(scans=scans, gt_rel=g0_R.inv().apply(drive.gt_t - drive.gt_t[0]),
+                ref_t=ref_t)
 
-    t0 = time.perf_counter()
-    warm = LidarOdometry(cfg, device=device)
-    for scan in scans:
-        warm.process_scan(scan)
-    torch.cuda.synchronize()
-    log(f"main path: warm-up pass {time.perf_counter() - t0:.1f} s")
 
+def drive_path(name: str, cfg, bench: dict, device):
+    """One timed pass of the bench drive through LidarOdometry(cfg) with
+    every launch count set to 0 just before it and read just after; checks
+    accuracy, divergence and the K1 / K2 schedule. Returns (odometry,
+    launches, iterations per scan)."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
+    from lidar_odometry_demo_tpu_torch.ops.voxel_map import map_size
+    from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
+
+    scans = bench["scans"]
+    num_scans = len(scans)
     odo = LidarOdometry(cfg, device=device)
-    match_rows.launches = 0
-    jtwj_accumulate.launches = 0
+    zero_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     diags = [odo.process_scan(scan) for scan in scans]
     end.record()
     end.synchronize()
-    launches = {"match_rows": match_rows.launches,
-                "jtwj_accumulate": jtwj_accumulate.launches}
+    launches = read_counts()
     ms_per_scan = start.elapsed_time(end) / num_scans
 
     est = np.stack([d.pose.t.cpu().numpy() for d in diags])
     iters = np.array([int(d.icp_iterations) for d in diags])
     diverged = np.array([bool(d.diverged) for d in diags])
     if not np.all(np.isfinite(est)) or est.shape != (num_scans, 3):
-        raise AssertionError("main path: non-finite or misshapen poses")
-    g0 = drive.gt_q[0]
-    g0_R = Rotation.from_quat([g0[1], g0[2], g0[3], g0[0]])
-    gt_rel = g0_R.inv().apply(drive.gt_t - drive.gt_t[0])
-    ate = ate_rmse(est, gt_rel, align=True)
-    _, ref_t, _ = read_tum(os.path.join(REPO, "benchmarks", "BASELINE_REF.tum"))
-    ate_ref = ate_rmse(est, ref_t, align=True)
+        raise AssertionError(f"{name}: non-finite or misshapen poses")
+    ate = ate_rmse(est, bench["gt_rel"], align=True)
+    ate_ref = ate_rmse(est, bench["ref_t"], align=True)
     occupancy = int(map_size(odo.state.keyframe))
     rounds = int(iters.sum())
     icp_scans = int(np.sum(iters > 0))
-    log(f"main path: {ms_per_scan:.3f} ms/scan, {1e3 / ms_per_scan:.2f} scans/s "
-        f"(CUDA events, {num_scans} scans, full OdometryConfig)")
-    log(f"main path: aligned ATE {ate:.5f} m vs ground truth, {ate_ref:.5f} m vs "
+    log(f"{name}: {ms_per_scan:.3f} ms/scan, {1e3 / ms_per_scan:.2f} scans/s "
+        f"(CUDA events, {num_scans} scans)")
+    log(f"{name}: aligned ATE {ate:.5f} m vs ground truth, {ate_ref:.5f} m vs "
         f"benchmarks/BASELINE_REF.tum")
-    log(f"main path: map occupancy {occupancy} / {cfg.map_capacity} voxels, mean ICP "
-        f"rounds {rounds / max(icp_scans, 1):.2f} over {icp_scans} scans, "
-        f"diverged {int(diverged.sum())}, launches {launches}")
+    log(f"{name}: map occupancy {occupancy} / {cfg.map_capacity} voxels, mean ICP "
+        f"rounds {rounds / max(icp_scans, 1):.2f} over {icp_scans} scans (max "
+        f"{iters.max()}), diverged {int(diverged.sum())}, launches {launches}")
 
     if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+        raise AssertionError(f"{name}: a kernel was not launched: {launches}")
     if launches["match_rows"] != rounds:
-        raise AssertionError(f"K1 launches {launches['match_rows']} != ICP rounds {rounds}")
+        raise AssertionError(f"{name}: K1 launches {launches['match_rows']} != ICP rounds {rounds}")
     if launches["jtwj_accumulate"] != cfg.icp_inner_iterations * rounds:
         raise AssertionError(
-            f"K2 launches {launches['jtwj_accumulate']} != 4 x ICP rounds {rounds}")
+            f"{name}: K2 launches {launches['jtwj_accumulate']} != 4 x ICP rounds {rounds}")
     if ate > 0.03:
-        raise AssertionError(f"aligned ATE {ate:.4f} m exceeds 0.03 m")
+        raise AssertionError(f"{name}: aligned ATE {ate:.4f} m exceeds 0.03 m")
     if diverged.any():
-        raise AssertionError(f"{int(diverged.sum())} scans diverged")
+        raise AssertionError(f"{name}: {int(diverged.sum())} scans diverged")
+    return odo, launches, iters
+
+
+def run_main_path(bench: dict, device):
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
+
+    cfg = OdometryConfig()
+    t0 = time.perf_counter()
+    warm = LidarOdometry(cfg, device=device)
+    for scan in bench["scans"]:
+        warm.process_scan(scan)
+    torch.cuda.synchronize()
+    log(f"main path: warm-up pass {time.perf_counter() - t0:.1f} s")
+    odo, launches, iters = drive_path("main path", cfg, bench, device)
+    # K3: the neighbourhood lookup of each ICP scan's one candidate gather,
+    # and the group lookup of every scan's map_update
+    want = int(np.sum(iters > 0)) + len(iters)
+    if launches["search_sorted"] != want:
+        raise AssertionError(f"main path: K3 launches {launches['search_sorted']} != ICP "
+                             f"scans + map_update calls {want}")
+    return odo, launches
+
+
+def run_reference_parity(bench: dict, device) -> dict:
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig, reference_parity
+
+    cfg = reference_parity(OdometryConfig())
+    _, launches, iters = drive_path("reference_parity path", cfg, bench, device)
+    # K3: one neighbourhood lookup per ICP round (the map re-searched at the
+    # round's pose), one per map_update (every scan)
+    want = int(iters.sum()) + len(iters)
+    if launches["search_sorted"] != want:
+        raise AssertionError(f"reference_parity path: K3 launches {launches['search_sorted']}"
+                             f" != ICP rounds + map_update calls {want}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 4: K3 against its plain version and torch.searchsorted
+# --------------------------------------------------------------------------
+
+def main_path_lookups(odo, scan) -> dict:
+    """The (keys, queries) of K3's two lookups on the main path: one more
+    step of the bench drive from the main path's final state, with the
+    lookup recorded (its launches are not counted: counts are zeroed before
+    every drive)."""
+    from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
+    from lidar_odometry_demo_tpu_torch.pipeline.odometry import make_process_scan
+
+    calls = []
+    search = vm.search_sorted
+
+    def recorded(keys, queries):
+        calls.append((keys, queries))
+        return search(keys, queries)
+
+    vm.search_sorted = recorded
+    try:
+        make_process_scan(odo.cfg)(odo.state, scan)
+    finally:
+        vm.search_sorted = search
+    if len(calls) != 2:
+        raise AssertionError(f"expected 2 lookups in one main-path step, saw {len(calls)}")
+    return {"neighbourhood lookup": calls[0], "map_update lookup": calls[1]}
+
+
+def check_search(device, lookups: dict) -> dict:
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.kernels.search import (
+        search_sorted, search_sorted_plain, search_steps)
+    from lidar_odometry_demo_tpu_torch.ops.voxel_map import EMPTY_KEY
+
+    def library(keys, q):
+        return torch.searchsorted(keys, q, side="left", out_int32=True)
+
+    def agree(label, keys, q):
+        got = search_sorted(keys, q)
+        plain = search_sorted_plain(keys, q)
+        lib = library(keys, q)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or got.shape != q.shape:
+            raise AssertionError(f"K3 {label}: {got.dtype} {tuple(got.shape)}")
+        for ref, ref_name in ((plain, "plain version"), (lib, "torch.searchsorted")):
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K3 {label}: differs from the {ref_name} at "
+                                     f"{int((got != ref).sum())} of {q.numel()} queries")
+        return got
+
+    # the TPU script's own fixture
+    rng = np.random.default_rng(0)
+    C = 131072
+    fix_keys = torch.from_numpy(np.sort(rng.integers(0, 2**31, C)).astype(np.int32)).to(device)
+    fix_q = torch.from_numpy(rng.integers(0, 2**31, 8192 * 27).astype(np.int32)).to(device)
+    shapes = dict(lookups)
+    shapes["TPU script fixture"] = (fix_keys, fix_q)
+    for label, (keys, q) in shapes.items():
+        agree(label, keys, q)
+
+    # the edges, on the main path's map (EMPTY_KEY tail) and on a tail-free table
+    keys = lookups["neighbourhood lookup"][0]
+    n_live = int((keys != EMPTY_KEY).sum())
+    k = keys.cpu().numpy().astype(np.int64)
+    gaps = np.nonzero(np.diff(k[:n_live]) >= 2)[0]
+    if n_live < 2 or n_live == keys.numel() or gaps.size == 0:
+        raise AssertionError(f"K3 edges: the map's keys do not present every edge ({n_live} live)")
+    g = int(gaps[0])  # k[g] < k[g] + 1 < k[g + 1]: strictly between two keys
+    # below keys[0]; equal to keys[0]; keys[0] < q <= keys[1] (where 17 steps
+    # stop at 0); strictly between two keys; equal to a key; the last live
+    # key and one above it; the EMPTY_KEY run (its lower bound)
+    edges = torch.tensor([k[0] - 1, k[0], k[1], k[g] + 1, k[n_live // 2], k[n_live - 1],
+                          k[n_live - 1] + 1, EMPTY_KEY], dtype=torch.int32, device=device)
+    got = agree("edges on the map", keys, edges).cpu().numpy()
+    want = [0, 0, 1, g + 1, n_live // 2, n_live - 1, n_live, n_live]
+    if list(got) != want:
+        raise AssertionError(f"K3 edges: {list(got)} != {want}")
+    got = agree("above every key", fix_keys, torch.tensor(
+        [2**31 - 1, int(fix_keys[-1]) + 1], dtype=torch.int32, device=device))
+    if got.tolist() != [C, C]:
+        raise AssertionError(f"K3 above every key: {got.tolist()} != [{C}, {C}]")
+    before = search_sorted.launches
+    empty = search_sorted(keys, torch.zeros(0, dtype=torch.int32, device=device))
+    torch.cuda.synchronize()
+    if empty.shape != (0,) or search_sorted.launches != before:
+        raise AssertionError("K3 with no queries must return an empty tensor without a launch")
+
+    timed = []
+    for label, (keys, q) in shapes.items():
+        ms = time_ms(lambda: search_sorted(keys, q), 200)
+        call_ms = time_ms(lambda: search_sorted(keys, q), 200, queue_first=False)
+        plain_ms = time_ms(lambda: search_sorted_plain(keys, q), 20)
+        library_ms = time_ms(lambda: library(keys, q), 200)
+        C, N = keys.numel(), q.numel()
+        # keys read once, each query read and each index written once;
+        # one comparison per step and query
+        b_ms, b_by = bound_ms(4.0 * C + 8.0 * N, float(N * search_steps(C)))
+        log(f"kernel search_sorted (K3), {label}: C={C} N={N} max_abs_err=0 kernel "
+            f"{ms:.4f} ms on the card ({call_ms:.4f} ms per call as dispatched), plain "
+            f"{plain_ms:.4f} ms, torch.searchsorted {library_ms:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by})")
+        timed.append(dict(shape=label, C=C, N=N, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
+    head = timed[0]  # the neighbourhood lookup: once per ICP round on the exact path
+    return dict(name="search_sorted", route="cuda",
+                source="lidar_odometry_demo_tpu_torch/kernels/search.cu",
+                replaces="scripts/pallas_search_exp.py:39", max_abs_err=0.0,
+                ms=head["ms"], call_ms=head["call_ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], shapes=timed)
+
+
+# --------------------------------------------------------------------------
+# phase 6: the CLI
+# --------------------------------------------------------------------------
+
+def run_cli() -> dict:
+    from lidar_odometry_demo_tpu_torch import cli
+    from lidar_odometry_demo_tpu_torch.io.trajectory import read_tum
+
+    out_dir = os.path.join(REPO, "chiprun_out", "cli_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    tum, kf = os.path.join(out_dir, "t.tum"), os.path.join(out_dir, "kf.pcd")
+    for path in (tum, kf):
+        if os.path.exists(path):
+            os.remove(path)
+    zero_counts()
+    t0 = time.perf_counter()
+    cli.main(["sim", "--scans", "5", "--out", tum, "--keyframe-out", kf, "--quiet"])
+    launches = read_counts()
+    stamps, t, _ = read_tum(tum)
+    with open(kf) as f:
+        points = next(int(line.split()[1]) for line in f if line.startswith("POINTS"))
+    log(f"cli: sim --scans 5 in {time.perf_counter() - t0:.1f} s, {len(stamps)} TUM rows, "
+        f"keyframe PCD POINTS {points}, launches {launches}")
+    if t.shape != (5, 3) or not np.all(np.isfinite(t)) or not np.all(np.diff(stamps) > 0):
+        raise AssertionError(f"cli: the TUM must hold 5 monotone rows: {stamps}")
+    if points <= 0:
+        raise AssertionError("cli: the keyframe PCD holds no points")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"cli: a kernel was not launched: {launches}")
     return launches
 
 
@@ -314,9 +538,15 @@ def main() -> int:
 
     rng = np.random.default_rng(1234)
     kernels = [check_match_rows(rng, device), check_jtwj(rng, device)]
-    launches = run_main_path(device)
+    bench = bench_drive(device)
+    odo, launches = run_main_path(bench, device)
+    kernels.append(check_search(device, main_path_lookups(odo, bench["scans"][-1])))
+    parity = run_reference_parity(bench, device)
+    cli_launches = run_cli()
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_reference_parity"] = parity[k["name"]]
+        k["launches_cli"] = cli_launches[k["name"]]
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)

@@ -3,9 +3,10 @@
 A second package beside the JAX reference ``lidar_odometry_demo_tpu``,
 with the same module names: deskew -> planar classification -> voxel
 downsampling -> point-to-plane ICP against the hash-voxel keyframe map ->
-keyframe update with radius eviction. The two TPU kernels of that path are
-hand-written CUDA kernels here (``kernels/``). Entry points run on the
-card unless the caller passes ``device="cpu"``.
+keyframe update with radius eviction. The TPU kernels of that path (the
+candidate re-match, the normal equations, the sorted-key search) are
+hand-written CUDA kernels here (``kernels/``). Entry points (``LidarOdometry``,
+``cli``) run on the card unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -18,7 +18,7 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = {"match_rows": "match_rows.cu", "jtwj": "jtwj.cu"}
+SOURCES = {"match_rows": "match_rows.cu", "jtwj": "jtwj.cu", "search": "search.cu"}
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

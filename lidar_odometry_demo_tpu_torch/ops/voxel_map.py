@@ -20,9 +20,9 @@ the capacity, the table keeps the C smallest keys.
 
 The TPU layout tricks of the JAX module (2-D (n//128, 128) blocking,
 packed row gathers, the dense column directory with popcount descriptors)
-are not carried over: the neighbourhood lookup is a `torch.searchsorted`
-on the sorted keys, which the JAX module's own index-free branch shows to
-agree with the directory.
+are not carried over: the neighbourhood lookup is a sorted-key search
+(kernel K3, kernels/search.py) on the sorted keys, which the JAX module's
+own index-free branch shows to agree with the directory.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 
 from lidar_odometry_demo_tpu_torch.device import true_div
 from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
+from lidar_odometry_demo_tpu_torch.kernels.search import search_sorted
 from lidar_odometry_demo_tpu_torch.ops.cloud import PointsWithNormals
 from lidar_odometry_demo_tpu_torch.ops.se3 import rot_pts
 
@@ -262,8 +263,8 @@ def _neighborhood_slots(m: VoxelMap, q_world: torch.Tensor,
     clipped to the map's z window). Columns outside the map window, or of
     invalid queries, get base C-1 and n_present 0. Where a column holds no
     voxel of the window, base is the insertion slot (the JAX directory
-    gives C-1 there); such rows are masked by n_present = 0. A searchsorted
-    on the sorted keys takes the place of the JAX module's dense column
+    gives C-1 there); such rows are masked by n_present = 0. A sorted-key
+    search (kernel K3) takes the place of the JAX module's dense column
     directory and z-occupancy descriptors.
     """
     C = m.capacity
@@ -280,7 +281,7 @@ def _neighborhood_slots(m: VoxelMap, q_world: torch.Tensor,
     ryc = torch.where(col_ok, ry, _YOFF)
     z0 = torch.clamp(zd - 1, 0, 2 * _DIR_ZHALF - 1)
     start_key = _pack(rxc, ryc, z0 + _DIR_ZLO).to(torch.int32)
-    pos = torch.searchsorted(m.keys, start_key.reshape(-1), out_int32=True)
+    pos = search_sorted(m.keys, start_key.reshape(-1))
     base = torch.clamp_max(pos.reshape(9, -1), C - 1)
     base = torch.where(col_ok, base, C - 1)
 
@@ -363,6 +364,28 @@ def match_candidates(m: VoxelMap, cand: CandidateSet, query_local: torch.Tensor,
     )
 
 
+def find_correspondences(m: VoxelMap, query_local: torch.Tensor,
+                         query_valid: torch.Tensor, pose_t: torch.Tensor,
+                         pose_R: torch.Tensor, *, voxel_size: float,
+                         max_distance: float,
+                         nrm_view: torch.Tensor | None = None) -> Correspondence:
+    """27-neighbourhood nearest-point search at the *current* pose (reference
+    findMatchingPairs, voxel_grid.h:206-234): gather_candidates then
+    match_candidates at the same pose.
+
+    The counterpart of both find_correspondences_indexed and
+    find_correspondences of the JAX module: the port has no SearchIndex (its
+    lookup searches the sorted keys directly), so one function covers both.
+    `nrm_view`: m.nrm, derived once per scan by a caller that searches the
+    same map repeatedly (the exact-search ICP loop); derived here if absent.
+    """
+    cand = gather_candidates(m, query_local, query_valid, pose_t, pose_R,
+                             voxel_size=voxel_size)
+    return match_candidates(m, cand, query_local, query_valid, pose_t, pose_R,
+                            max_distance=max_distance,
+                            nrm_view=m.nrm if nrm_view is None else nrm_view)
+
+
 # ---------------------------------------------------------------------------
 # per-scan maintenance: evict + rebase + insert with one sort and one row
 # gather (reference radiusCleanup + addCloud, voxel_grid.h:236-246, 77-93)
@@ -409,7 +432,7 @@ def _update_impl(m: VoxelMap, new: PointsWithNormals, new_origin: torch.Tensor,
     valid_e = skeys != EMPTY_KEY
 
     # locate each group in the old (shifted) table
-    pos = torch.searchsorted(keys1, skeys, out_int32=True)
+    pos = search_sorted(keys1, skeys)
     pos_c = torch.clamp_max(pos, C - 1)
     found = valid_e & (keys1[pos_c.long()] == skeys)
 

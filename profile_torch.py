@@ -1,8 +1,10 @@
 """Profile the PyTorch/CUDA port's main path on one GPU.
 
-    python3 profile_torch.py [--scans N] [--out FILE]
+    python3 profile_torch.py [--scans N] [--out FILE] [--reference-parity]
 
-Runs the 40-scan bench drive (seed 42, 5 m/s, full `OdometryConfig()`)
+Runs the 40-scan bench drive (seed 42, 5 m/s, full `OdometryConfig()`, or
+`reference_parity(OdometryConfig())` with --reference-parity, where ICP
+re-searches the map every round)
 through `LidarOdometry(device="cuda")` once to warm up, then again with the
 pipeline's stages (deskew, classify, downsample, ICP, map update) wrapped
 in device synchronisations to time each stage's wall time over scans
@@ -43,6 +45,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scans", type=int, default=5)
     ap.add_argument("--out", help="file for the full profiler tables")
+    ap.add_argument("--reference-parity", action="store_true",
+                    help="profile the strict reference path (exact-search ICP)")
     args = ap.parse_args()
     n_prof = args.scans
     import torch
@@ -52,7 +56,7 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig, reference_parity
     from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
     from lidar_odometry_demo_tpu_torch.ops import classifier, icp, preprocess
     from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
@@ -62,8 +66,9 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    print(f"card: {card}")
-    cfg = OdometryConfig()
+    cfg = reference_parity(OdometryConfig()) if args.reference_parity else OdometryConfig()
+    print(f"card: {card}; config: "
+          f"{'reference_parity' if args.reference_parity else 'default'}")
     dev = torch.device("cuda")
     drive = simulate_sequence(num_scans=40, width=cfg.scan_width, seed=42,
                               speed=5.0, yaw_rate=0.08)
@@ -132,7 +137,7 @@ def main() -> int:
         return 0
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        f.write(f"card: {card}\n")
+        f.write(f"card: {card}; reference_parity: {args.reference_parity}\n")
         f.write(events.table(sort_by="self_device_time_total", row_limit=80))
         f.write("\n\nby host time:\n")
         f.write(events.table(sort_by="self_cpu_time_total", row_limit=40))

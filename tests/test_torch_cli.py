@@ -1,0 +1,149 @@
+"""Port parity for the entry point: the CLI (`sim`, `pcd-dir`) against the
+JAX package's CLI on TINY-sized scans, and the framework-free copies
+(io/pcd.py, models/presets.py) and the profiling helpers (CPU).
+
+Tolerances: the TUM rows agree within 1e-5 (the one-step bar of
+tests/test_torch_pipeline.py; TUM keeps 6 decimals); the JSON lines carry
+the same keys and equal ICP iterations, matches and map sizes; PCD values
+round-trip to the 6 decimals the ascii writer keeps.
+"""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from lidar_odometry_demo_tpu import cli as jcli
+from lidar_odometry_demo_tpu.io import pcd as jpcd
+from lidar_odometry_demo_tpu.models import presets as jpresets
+from lidar_odometry_demo_tpu_torch import cli
+from lidar_odometry_demo_tpu_torch.config import TINY
+from lidar_odometry_demo_tpu_torch.io import pcd
+from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
+from lidar_odometry_demo_tpu_torch.io.trajectory import read_tum
+from lidar_odometry_demo_tpu_torch.models import presets
+from lidar_odometry_demo_tpu_torch.utils import profiling
+
+N_SCANS = 6
+
+
+@pytest.fixture(scope="module")
+def tiny_yaml(tmp_path_factory):
+    path = tmp_path_factory.mktemp("cfg") / "tiny.yaml"
+    path.write_text(yaml.safe_dump(dataclasses.asdict(TINY)))
+    return str(path)
+
+
+def _json_lines(err: str):
+    return [json.loads(line) for line in err.splitlines() if line.startswith("{")]
+
+
+def test_cli_sim_matches_the_jax_cli(tmp_path, capsys, tiny_yaml):
+    sim = ["sim", "--scans", str(N_SCANS), "--seed", "3", "--speed", "5.0"]
+    jcli.main(["--config", tiny_yaml, *sim, "--out", str(tmp_path / "j.tum")])
+    jerr = capsys.readouterr().err
+    cli.main(["--config", tiny_yaml, *sim, "--device", "cpu", "--out", str(tmp_path / "t.tum"),
+              "--keyframe-out", str(tmp_path / "kf.pcd")])
+    captured = capsys.readouterr()
+    assert "aligned ATE RMSE vs ground truth" in captured.out
+
+    stamps, t, q = read_tum(str(tmp_path / "t.tum"))
+    _, jt, jq = read_tum(str(tmp_path / "j.tum"))
+    assert t.shape == (N_SCANS, 3) and np.all(np.diff(stamps) > 0)
+    assert np.abs(t[-1]).max() > 1e-3  # the estimate moves
+    np.testing.assert_allclose(t, jt, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(q, jq, atol=1e-5, rtol=0)
+
+    lines, jlines = _json_lines(captured.err), _json_lines(jerr)
+    assert len(lines) == len(jlines) == N_SCANS
+    for got, want in zip(lines, jlines):
+        assert got.keys() == want.keys()
+        for k in ("scan", "icp_iterations", "matches", "map_voxels", "diverged"):
+            assert got[k] == want[k], k
+
+    kf = pcd.read_pcd_xyz(str(tmp_path / "kf.pcd"))
+    assert kf.shape == (lines[-1]["map_voxels"], 3)
+    assert np.all(np.isfinite(kf))
+
+
+def _write_scan_pcd(path, s):
+    """A binary PCD with the x y z intensity ring time fields of one scan."""
+    n = s["xyz"].shape[0]
+    rec = np.zeros(n, dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                             ("intensity", "<f4"), ("ring", "<u2"), ("time", "<f4")])
+    rec["x"], rec["y"], rec["z"] = s["xyz"].T
+    rec["intensity"], rec["ring"], rec["time"] = s["intensity"], s["ring"], s["time"]
+    header = ("VERSION 0.7\nFIELDS x y z intensity ring time\nSIZE 4 4 4 4 2 4\n"
+              "TYPE F F F F U F\nCOUNT 1 1 1 1 1 1\n"
+              f"WIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS {n}\nDATA binary\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(rec.tobytes())
+
+
+def test_cli_pcd_dir_matches_the_same_scans_simulated(tmp_path, capsys, tiny_yaml):
+    """pcd-dir over the sim drive's scans saved as PCD files gives the sim
+    subcommand's trajectory."""
+    drive = simulate_sequence(num_scans=N_SCANS, width=TINY.scan_width, seed=3, speed=2.0,
+                              yaw_rate=0.05)
+    scans = tmp_path / "scans"
+    scans.mkdir()
+    for i, s in enumerate(drive.scans):
+        _write_scan_pcd(scans / f"{i:04d}.pcd", s)
+    cli.main(["--config", tiny_yaml, "pcd-dir", str(scans), "--device", "cpu", "--quiet",
+              "--out", str(tmp_path / "dir.tum")])
+    cli.main(["--config", tiny_yaml, "sim", "--scans", str(N_SCANS), "--seed", "3",
+              "--speed", "2.0", "--device", "cpu", "--quiet", "--out", str(tmp_path / "sim.tum")])
+    assert _json_lines(capsys.readouterr().err) == []  # --quiet
+    _, t_dir, q_dir = read_tum(str(tmp_path / "dir.tum"))
+    _, t_sim, q_sim = read_tum(str(tmp_path / "sim.tum"))
+    np.testing.assert_array_equal(t_dir, t_sim)
+    np.testing.assert_array_equal(q_dir, q_sim)
+
+
+def test_cli_runs_on_the_card_by_default(monkeypatch):
+    """Without --device the CLI asks for "cuda"; with no card that raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["sim", "--scans", "1", "--quiet"])
+
+
+def test_pcd_round_trip_matches_the_jax_copy(tmp_path, rng):
+    xyz = rng.uniform(-50, 50, (300, 3)).astype(np.float32)
+    nrm = rng.normal(0, 1, (300, 3)).astype(np.float32)
+    xyz[7] = np.nan
+    pcd.write_pcd(str(tmp_path / "a.pcd"), xyz, nrm)
+    jpcd.write_pcd(str(tmp_path / "b.pcd"), xyz, nrm)
+    assert (tmp_path / "a.pcd").read_bytes() == (tmp_path / "b.pcd").read_bytes()
+    got, want = pcd.read_pcd(str(tmp_path / "a.pcd")), jpcd.read_pcd(str(tmp_path / "a.pcd"))
+    assert got.keys() == want.keys() == {"x", "y", "z", "normal_x", "normal_y", "normal_z"}
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k])
+    back = pcd.read_pcd_xyz(str(tmp_path / "a.pcd"))
+    assert back.shape == (299, 3)
+    np.testing.assert_allclose(back, np.delete(xyz, 7, axis=0), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["vlp16_default", "vlp16_fast", "vlp16_high_accuracy",
+                                  "tiny_test"])
+def test_presets_match_the_jax_presets(name):
+    assert getattr(presets, name)().to_dict() == getattr(jpresets, name)().to_dict()
+
+
+def test_profiling_helpers_on_cpu(tmp_path):
+    timer = profiling.StageTimer()
+    x = torch.ones(4)
+    for _ in range(2):
+        with timer.stage("sum", sync=(x, {"y": [x]})):
+            x = x + 1
+    assert timer.counts["sum"] == 2 and "sum" in timer.summary()
+    rate = profiling.ScanRateCounter(window=3)
+    assert rate.tick() == 0.0
+    assert all(rate.tick() > 0 for _ in range(4)) and len(rate.stamps) == 3
+    with profiling.trace(str(tmp_path / "tr")):
+        with profiling.annotate("region"):
+            torch.ones(8).sum()
+    assert "region" in (tmp_path / "tr" / "trace.json").read_text()

@@ -76,10 +76,13 @@ def test_normal_equations_with_prior_match_jax(rng):
     np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=2e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("seed,offset", [(11, 0.0), (5, 0.08)])
-def test_make_align_matches_jax(rng, seed, offset):
-    """The setup of test_icp_pallas_jtwj_flag_matches_xla, and a variant
-    started 8 cm off."""
+@pytest.mark.parametrize("cached", [True, False])
+@pytest.mark.parametrize("seed,offset", [(11, 0.0), (5, 0.08), (5, 0.2), (7, 0.3)])
+def test_make_align_matches_jax(rng, seed, offset, cached):
+    """The setup of test_icp_pallas_jtwj_flag_matches_xla, and variants
+    started 8, 20 and 30 cm off, with the candidates cached once at the
+    guess pose and (cached=False, the reference_parity() mode) re-searched
+    at the current pose every round."""
     xyz, nrm = sample_structured_cloud(seed=seed, n_per_plane=400)
     jp = jcloud.PointsWithNormals(jnp.asarray(xyz), jnp.asarray(nrm),
                                   jnp.ones(xyz.shape[0], bool))
@@ -90,9 +93,11 @@ def test_make_align_matches_jax(rng, seed, offset):
     qv = np.ones(n_q, bool)
     gt = np.array([offset, -offset / 2, 0.0], np.float32)
     gq = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
-    jres = jicp.make_align(JTINY)(jm, jnp.asarray(q), jnp.asarray(qv),
-                                  jse3.Pose(jnp.asarray(gt), jnp.asarray(gq)))
-    tres = ticp.make_align(TINY)(tm, _t(q), _t(qv), tse3.Pose(_t(gt), _t(gq)))
+    jcfg = JTINY.replace(icp_cached_candidates=cached)
+    tcfg = TINY.replace(icp_cached_candidates=cached)
+    jres = jicp.make_align(jcfg)(jm, jnp.asarray(q), jnp.asarray(qv),
+                                 jse3.Pose(jnp.asarray(gt), jnp.asarray(gq)))
+    tres = ticp.make_align(tcfg)(tm, _t(q), _t(qv), tse3.Pose(_t(gt), _t(gq)))
     assert int(tres.iterations) == int(jres.iterations)
     assert int(tres.num_matches) == int(jres.num_matches)
     np.testing.assert_allclose(tres.pose.t.numpy(), np.asarray(jres.pose.t), atol=1e-5, rtol=0)

@@ -8,9 +8,11 @@ without JAX, with the repository's conftest left out:
 
 Tolerances: K1 index equal where valid, point and d2 within atol 1e-6 of
 its plain version; K2 within rtol 2e-5 / atol 1e-4 of its plain version
-and bitwise equal across two runs; the TINY drive on the card within 1e-4 m
-of the same drive through the port on the CPU, with equal ICP iteration
-counts.
+and bitwise equal across two runs; K3 equal to its plain version and to
+torch.searchsorted at every index; the TINY drives on the card (default and
+reference_parity) within 1e-4 m of the same drive through the port on the
+CPU, with equal ICP iteration counts and launch counts equal to the
+schedule.
 """
 
 import numpy as np
@@ -18,12 +20,13 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
-from lidar_odometry_demo_tpu_torch.config import TINY
+from lidar_odometry_demo_tpu_torch.config import TINY, reference_parity
 from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
 from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows, match_rows_plain
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate, jtwj_plain
+from lidar_odometry_demo_tpu_torch.kernels.search import search_sorted, search_sorted_plain
 from lidar_odometry_demo_tpu_torch.ops.cloud import scan_from_numpy
-from lidar_odometry_demo_tpu_torch.ops.voxel_map import _lanes
+from lidar_odometry_demo_tpu_torch.ops.voxel_map import EMPTY_KEY, _lanes
 from lidar_odometry_demo_tpu_torch.pipeline import odometry
 
 pytestmark = pytest.mark.cuda
@@ -103,19 +106,80 @@ def test_wrappers_check_their_inputs_on_card(rng):
         jtwj_accumulate(sl, po, pn, valid[:32], R, t, huber_delta=0.15)
 
 
-def test_tiny_drive_on_card_matches_cpu():
-    _need_card()
-    d = simulate_sequence(num_scans=5, width=TINY.scan_width, seed=3, speed=2.0,
+def _drive_cpu_and_card(cfg, n_scans=5):
+    d = simulate_sequence(num_scans=n_scans, width=TINY.scan_width, seed=3, speed=2.0,
                           yaw_rate=0.05, ramp_time=0.0)
     runs = {}
     for dev in ("cpu", "cuda"):
         scans = [scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
                                  TINY.max_raw_points, dev) for s in d.scans]
-        before = (match_rows.launches, jtwj_accumulate.launches)
-        _, diag = odometry.make_sequence_runner(TINY)(odometry.init_state(TINY, dev), scans)
-        launched = (match_rows.launches - before[0], jtwj_accumulate.launches - before[1])
+        before = (match_rows.launches, jtwj_accumulate.launches, search_sorted.launches)
+        _, diag = odometry.make_sequence_runner(cfg)(odometry.init_state(cfg, dev), scans)
+        launched = (match_rows.launches - before[0], jtwj_accumulate.launches - before[1],
+                    search_sorted.launches - before[2])
         runs[dev] = (diag.pose.t.cpu().numpy(), diag.icp_iterations.cpu().numpy(), launched)
     (t_cpu, it_cpu, _), (t_gpu, it_gpu, launched) = runs["cpu"], runs["cuda"]
     np.testing.assert_allclose(t_gpu, t_cpu, atol=1e-4, rtol=0)
     np.testing.assert_array_equal(it_gpu, it_cpu)
-    assert launched == (it_gpu.sum(), TINY.icp_inner_iterations * it_gpu.sum())
+    return it_gpu, launched
+
+
+def test_tiny_drive_on_card_matches_cpu():
+    _need_card()
+    iters, launched = _drive_cpu_and_card(TINY)
+    rounds = iters.sum()
+    # K3: one neighbourhood lookup per ICP scan, one per map_update (every scan)
+    assert launched == (rounds, TINY.icp_inner_iterations * rounds,
+                        np.sum(iters > 0) + len(iters))
+
+
+def test_reference_parity_tiny_drive_on_card_matches_cpu():
+    _need_card()
+    cfg = reference_parity(TINY)
+    iters, launched = _drive_cpu_and_card(cfg)
+    rounds = iters.sum()
+    # K3: one lookup per ICP round (the exact search), one per map_update
+    assert launched == (rounds, cfg.icp_inner_iterations * rounds, rounds + len(iters))
+
+
+def _edge_queries(keys: np.ndarray, n_live: int) -> np.ndarray:
+    """Below, at and just above keys[0]; keys[1]; a key; the last live key
+    and one above it; the EMPTY_KEY run; the largest int32."""
+    k0, k1, last = int(keys[0]), int(keys[1]), int(keys[n_live - 1])
+    return np.array([k0 - 1, k0, k0 + 1, k1, int(keys[100]), last, last + 1,
+                     EMPTY_KEY, 2**31 - 1], np.int32)
+
+
+@pytest.mark.parametrize("tail", [True, False])
+def test_search_kernel_matches_plain_and_searchsorted(rng, tail):
+    _need_card()
+    C = 131072
+    n_live = 88923 if tail else C
+    live = np.sort(rng.choice(2**30, n_live, replace=False)).astype(np.int32)
+    keys_np = np.concatenate([live, np.full(C - n_live, EMPTY_KEY, np.int32)])
+    q_np = np.concatenate([_edge_queries(keys_np, n_live),
+                           rng.integers(0, 2**31, 8192 * 9).astype(np.int32),
+                           keys_np[rng.integers(0, C, 4096)]])
+    keys, q = torch.from_numpy(keys_np).cuda(), torch.from_numpy(q_np).cuda()
+    before = search_sorted.launches
+    got = search_sorted(keys, q)
+    assert search_sorted.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == q.shape
+    assert torch.equal(got, search_sorted_plain(keys, q))
+    assert torch.equal(got, torch.searchsorted(keys, q, side="left", out_int32=True))
+    if not tail:
+        assert int(got[6]) == C  # above every key: C, never C + 1
+
+
+def test_search_kernel_small_tables_and_no_queries(rng):
+    _need_card()
+    for C in (0, 1, 2, 3, 7, 8, 9, 1000):
+        keys = torch.from_numpy(np.sort(rng.integers(0, 50, C)).astype(np.int32)).cuda()
+        q = torch.arange(-2, 53, dtype=torch.int32, device="cuda")
+        assert torch.equal(search_sorted(keys, q),
+                           torch.searchsorted(keys, q, side="left", out_int32=True))
+    before = search_sorted.launches
+    out = search_sorted(keys, torch.zeros(0, dtype=torch.int32, device="cuda"))
+    assert out.shape == (0,) and search_sorted.launches == before  # no launch
+    with pytest.raises(ValueError, match="int32"):
+        search_sorted(keys.long(), q)

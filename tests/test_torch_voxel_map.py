@@ -7,7 +7,10 @@ addresses masked rows); tab compared on live rows only, on the point and
 normal lanes below count plus the count and anchor lanes (the other lanes
 of a row may hold stale data by design). K1's plain version against the
 Pallas kernel in interpret mode: index equal where valid, point and d2
-within atol 1e-6.
+within atol 1e-6. The exact search (find_correspondences) against the JAX
+find_correspondences: valid equal, plane point and normal bitwise; against
+the dict oracle within atol 1e-5, as tests/test_voxel_map.py holds the JAX
+function.
 """
 
 import jax.numpy as jnp
@@ -17,7 +20,9 @@ import torch
 
 from lidar_odometry_demo_tpu.io.simulator import sample_structured_cloud
 from lidar_odometry_demo_tpu.ops import cloud as jcloud
+from lidar_odometry_demo_tpu.ops import se3 as jse3
 from lidar_odometry_demo_tpu.ops import voxel_map as jvm
+from lidar_odometry_demo_tpu.oracle.reference_semantics import DictVoxelGrid
 from lidar_odometry_demo_tpu.ops.pallas.correspondence import match_rows as pallas_match_rows
 from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows, match_rows_plain
 from lidar_odometry_demo_tpu_torch.ops import cloud as tcloud
@@ -191,6 +196,116 @@ def test_match_candidates_on_real_map_match_jax(rng):
     np.testing.assert_array_equal(tc.valid.numpy(), np.asarray(jc.valid))
     np.testing.assert_array_equal(tc.plane_origin.numpy(), np.asarray(jc.plane_origin))
     np.testing.assert_array_equal(tc.plane_normal.numpy(), np.asarray(jc.plane_normal))
+
+
+def _padded(xyz, nrm, capacity):
+    """Points padded with invalid rows to `capacity`, in both frameworks."""
+    n = xyz.shape[0]
+    pad = np.zeros((capacity - n, 3), np.float32)
+    valid = np.concatenate([np.ones(n, bool), np.zeros(capacity - n, bool)])
+    return _pts(np.concatenate([xyz, pad]), np.concatenate([nrm, pad]), valid)
+
+
+def _both_maps(xyz, nrm, capacity, K, voxel, pad_to):
+    jp, tp = _padded(xyz, nrm, pad_to)
+    jm = jvm.map_insert(jvm.map_init(capacity, K), jp, voxel_size=voxel)
+    tm = tvm.map_insert(tvm.map_init(capacity, K, "cpu"), tp, voxel_size=voxel)
+    _assert_maps_equal(jm, tm)
+    return jm, tm
+
+
+def _assert_corr_equal(tc, jc):
+    np.testing.assert_array_equal(tc.valid.numpy(), np.asarray(jc.valid))
+    np.testing.assert_array_equal(tc.plane_origin.numpy(), np.asarray(jc.plane_origin))
+    np.testing.assert_array_equal(tc.plane_normal.numpy(), np.asarray(jc.plane_normal))
+
+
+def test_find_correspondences_matches_oracle_and_jax(rng):
+    """Mirrors test_correspondence_matches_oracle (tests/test_voxel_map.py)."""
+    voxel = 0.3
+    stored = rng.uniform(-3, 3, (300, 3)).astype(np.float32)
+    nrm = rng.normal(size=(300, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    oracle = DictVoxelGrid(voxel, 5)
+    oracle.add_cloud(stored, nrm)
+    jm, tm = _both_maps(stored, nrm, 2048, 5, voxel, 512)
+
+    queries = rng.uniform(-3.5, 3.5, (64, 3)).astype(np.float32)
+    qv, t0, R0 = np.ones(64, bool), np.zeros(3, np.float32), np.eye(3, dtype=np.float32)
+    tc = tvm.find_correspondences(tm, _t(queries), _t(qv), _t(t0), _t(R0),
+                                  voxel_size=voxel, max_distance=0.3)
+    jc = jvm.find_correspondences(jm, jnp.asarray(queries), jnp.asarray(qv), jnp.asarray(t0),
+                                  jnp.asarray(R0), voxel_size=voxel, max_distance=0.3)
+    _assert_corr_equal(tc, jc)
+    n_valid = 0
+    for i in range(64):
+        expect = oracle.get_correspondence(queries[i], 0.3 * 0.3)
+        assert bool(tc.valid[i]) == (expect is not None), i
+        if expect is not None:
+            n_valid += 1
+            np.testing.assert_allclose(tc.plane_origin[i].numpy(), expect[0], atol=1e-5)
+            np.testing.assert_allclose(tc.plane_normal[i].numpy(), expect[1], atol=1e-5)
+    assert 0 < n_valid < 64
+
+
+def test_find_correspondences_respects_pose(rng):
+    """Mirrors test_correspondence_respects_pose: queries are transformed by
+    the pose first (voxel_grid.h:217-223)."""
+    voxel = 0.3
+    stored = rng.uniform(-3, 3, (100, 3)).astype(np.float32)
+    jm, tm = _both_maps(stored, np.zeros_like(stored), 1024, 3, voxel, 128)
+    q = jse3.quat_from_axis_angle(jnp.asarray([0.0, 0, 1.0], jnp.float32), 0.3)
+    t = np.array([0.5, -0.2, 0.1], np.float32)
+    R = np.asarray(jse3.quat_to_matrix(q))
+    local = ((stored - t) @ R).astype(np.float32)  # R^-1 (p - t): exact hits
+    qv = np.ones(100, bool)
+    tc = tvm.find_correspondences(tm, _t(local), _t(qv), _t(t), _t(R),
+                                  voxel_size=voxel, max_distance=0.05)
+    jc = jvm.find_correspondences(jm, jnp.asarray(local), jnp.asarray(qv), jnp.asarray(t),
+                                  jnp.asarray(R), voxel_size=voxel, max_distance=0.05)
+    _assert_corr_equal(tc, jc)
+    valid = tc.valid.numpy()
+    assert valid.mean() > 0.95
+    err = np.linalg.norm(tc.plane_origin.numpy() - stored, axis=-1)
+    assert np.all(err[valid] < 0.05)
+
+
+def test_cached_candidates_match_find_correspondences(rng):
+    """Mirrors test_cached_candidates_match_exact_search: the cache matched at
+    its gather pose equals the exact search there, and nearly so a few mm
+    away (the intra-ICP regime); the exact search equals the JAX one."""
+    voxel = 0.3
+    stored = rng.uniform(-3, 3, (500, 3)).astype(np.float32)
+    nrm = rng.normal(size=(500, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    jm, tm = _both_maps(stored, nrm, 2048, 5, voxel, 512)
+    queries = rng.uniform(-3.5, 3.5, (128, 3)).astype(np.float32)
+    qv = np.ones(128, bool)
+    t = np.array([0.05, -0.02, 0.01], np.float32)
+    R = np.eye(3, dtype=np.float32)
+    args = (_t(queries), _t(qv))
+
+    exact = tvm.find_correspondences(tm, *args, _t(t), _t(R), voxel_size=voxel,
+                                     max_distance=0.3)
+    cand = tvm.gather_candidates(tm, *args, _t(t), _t(R), voxel_size=voxel)
+    cached = tvm.match_candidates(tm, cand, *args, _t(t), _t(R), max_distance=0.3,
+                                  nrm_view=tm.nrm)
+    for f in ("valid", "plane_origin", "plane_normal"):
+        np.testing.assert_array_equal(getattr(exact, f).numpy(), getattr(cached, f).numpy())
+    jidx = jvm.build_search_index(jm)
+    _assert_corr_equal(exact, jvm.find_correspondences_indexed(
+        jm, jidx, jnp.asarray(queries), jnp.asarray(qv), jnp.asarray(t), jnp.asarray(R),
+        voxel_size=voxel, max_distance=0.3))
+
+    t2 = t + np.array([0.004, -0.003, 0.002], np.float32)
+    exact2 = tvm.find_correspondences(tm, *args, _t(t2), _t(R), voxel_size=voxel,
+                                      max_distance=0.3)
+    cached2 = tvm.match_candidates(tm, cand, *args, _t(t2), _t(R), max_distance=0.3,
+                                   nrm_view=tm.nrm)
+    assert np.mean(exact2.valid.numpy() == cached2.valid.numpy()) > 0.95
+    _assert_corr_equal(exact2, jvm.find_correspondences_indexed(
+        jm, jidx, jnp.asarray(queries), jnp.asarray(qv), jnp.asarray(t2), jnp.asarray(R),
+        voxel_size=voxel, max_distance=0.3))
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():
