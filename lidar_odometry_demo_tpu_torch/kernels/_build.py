@@ -118,6 +118,9 @@ def launch(fn, device, *args) -> None:
     argument) and raise on a non-zero cudaError_t."""
     import torch
 
+    if len(args) + 1 != len(fn.argtypes):  # ctypes would pass extras as C ints
+        raise TypeError(f"{fn.__name__}: {len(args) + 1} arguments for "
+                        f"{len(fn.argtypes)} declared types")
     if device.index is not None and device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
             status = fn(*args, torch.cuda.current_stream(device).cuda_stream)

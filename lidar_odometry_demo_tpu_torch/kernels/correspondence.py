@@ -1,24 +1,51 @@
 """Kernel K1 (``match_rows.cu``): first-minimum re-match of the cached ICP
-candidates, its plain PyTorch version, and its launch counter.
+candidates with the correspondence written in full, its plain PyTorch
+version, and its launch counter.
 
 Replaces the TPU kernel ``lidar_odometry_demo_tpu/ops/pallas/correspondence.py``
-(``_match_kernel`` / ``match_rows``). It runs once per ICP outer round. It
-is bound by device-memory bytes (the candidate lanes of every present slice,
-~54 MB a round at full width); the kernel reads each present slice once,
-one warp per query, and skips absent slices (see the source's note).
+(``_match_kernel`` / ``match_rows``) and the work around it in
+``voxel_map.match_candidates`` (the query's world position, the winner's
+normal, the masks). It runs once per ICP outer round. It is bound by
+device-memory bytes (the candidates of every present slice, ~14 MB a round
+at full width) and the latency of dependent loads; one warp per query
+issues each wave of loads for all 27 slices at once (see the source's
+note).
 
-On CPU tensors `match_rows` runs the plain version; on CUDA tensors it
-launches the kernel or raises. There is no fallback between the two.
+Two entry points on the one kernel: `match_correspondences` (pose mode, the
+main path) and `match_rows` (winner point, index and d2 of given world
+points). Both count their launches in `match_rows.launches`. On CPU tensors
+each runs its plain version; on CUDA tensors it launches the kernel or
+raises. There is no fallback between the two.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from lidar_odometry_demo_tpu_torch.kernels import _build
 from lidar_odometry_demo_tpu_torch.kernels._build import check_tensor
+from lidar_odometry_demo_tpu_torch.ops.se3 import rot_pts
+
+
+class Match(NamedTuple):
+    """K1's outputs for Q queries."""
+
+    plane_origin: torch.Tensor  # (Q, 3) winning point, 0 where not valid
+    plane_normal: torch.Tensor  # (Q, 3) its stored normal, 0 where not valid
+    valid: torch.Tensor         # (Q,) query_valid & (d2 < max_d2)
+    index: torch.Tensor         # (Q,) int32 flat index c*3K + z*K + k
+    d2: torch.Tensor            # (Q,) winning d2; max_d2 without a candidate
+
+    @staticmethod
+    def empty(Q: int, device) -> "Match":
+        f32 = dict(dtype=torch.float32, device=device)
+        return Match(torch.empty((Q, 3), **f32), torch.empty((Q, 3), **f32),
+                     torch.empty((Q,), dtype=torch.bool, device=device),
+                     torch.empty((Q,), dtype=torch.int32, device=device),
+                     torch.empty((Q,), **f32))
 
 
 def match_rows_plain(q_world: torch.Tensor, rows_z, n_present: torch.Tensor, *,
@@ -73,38 +100,119 @@ def match_rows_plain(q_world: torch.Tensor, rows_z, n_present: torch.Tensor, *,
     return point, idx, best_d2
 
 
+def match_correspondences_plain(query_local, query_valid, pose_t, pose_R, cand,
+                                nrm_view, *, max_d2: float, max_points: int) -> Match:
+    """K1 in pose mode as tensor ops: the port's ``match_candidates`` body
+    (q_world, match_rows_plain, the winner's normal from the map's (C, K, 3)
+    normal view `nrm_view` at slot clamp(base[c] + z, C-1), the valid mask
+    and the zeroed outputs)."""
+    K = max_points
+    C = nrm_view.shape[0]
+    q_world = rot_pts(query_local, pose_R) + pose_t
+    plane_origin, loc, best_d2 = match_rows_plain(q_world, cand.rows_z, cand.n_present,
+                                                  max_d2=max_d2, max_points=K)
+    c_idx = loc // (3 * K)
+    zk_idx = loc % (3 * K)
+    k_idx = zk_idx % K
+    valid = query_valid & (best_d2 < torch.tensor(max_d2, dtype=torch.float32,
+                                                  device=best_d2.device))
+    base_win = torch.gather(cand.base, 0, c_idx.long()[None, :])[0]
+    best_slot = torch.clamp_max(base_win + zk_idx // K, C - 1)
+    plane_normal = nrm_view[best_slot.long(), k_idx.long()]
+    v = valid[:, None]
+    return Match(torch.where(v, plane_origin, 0.0), torch.where(v, plane_normal, 0.0),
+                 valid, loc, best_d2)
+
+
+def _check_rows(rows_z, n_present, Q: int, K: int) -> int:
+    RW = rows_z[0].shape[-1]
+    if RW < 3 * K + 1:
+        raise ValueError(f"rows of width {RW} cannot hold K={K} candidates")
+    for s, r in enumerate(rows_z):
+        check_tensor(r, f"rows_z[{s}]", torch.int32, (9 * Q, RW))
+    check_tensor(n_present, "n_present", torch.int32, (9, Q))
+    return RW
+
+
+def _launch(dev, query, query_valid, R, t, rows_z, n_present, base, tab, Q, K, RW,
+            max_d2, out: Match, with_normal: bool) -> None:
+    if Q == 0:  # nothing to launch
+        return
+    fn = _build.c_function("match_rows", "match_launch",
+                           [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                           + [ctypes.c_void_p] * 6)
+    C, W = (tab.shape[0], tab.shape[1]) if tab is not None else (0, 0)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    _build.launch(fn, dev, query.data_ptr(), ptr(query_valid), ptr(R), ptr(t),
+                  rows_z[0].data_ptr(), rows_z[1].data_ptr(), rows_z[2].data_ptr(),
+                  n_present.data_ptr(), ptr(base), ptr(tab), Q, K, RW, C, W,
+                  float(max_d2), out.plane_origin.data_ptr(),
+                  out.plane_normal.data_ptr() if with_normal else None,
+                  out.valid.data_ptr() if with_normal else None,
+                  out.index.data_ptr(), out.d2.data_ptr())
+    match_rows.launches += 1
+
+
+def match_correspondences(query_local, query_valid, pose_t, pose_R, cand, tab, nrm_view,
+                          *, max_d2: float, max_points: int,
+                          out: Match | None = None) -> Match:
+    """K1 in pose mode: the plain version on CPU tensors, one kernel launch
+    on CUDA ones.
+
+    query_local (Q, 3) float32 and query_valid (Q,) bool; pose_t (3,) and
+    pose_R (3, 3) float32; cand a CandidateSet (rows_z three (9*Q, RW) int32
+    candidate-row arrays, n_present and base (9, Q) int32); tab (C, W)
+    int32, the map's rows, and nrm_view its (C, K, 3) float32 normal view
+    (the plain version reads the view, the kernel the table). On CUDA the
+    outputs are written into `out`, allocated if None.
+    """
+    if query_local.device.type == "cpu":
+        return match_correspondences_plain(query_local, query_valid, pose_t, pose_R, cand,
+                                           nrm_view, max_d2=max_d2, max_points=max_points)
+    Q, K = query_local.shape[0], max_points
+    rows_z, n_present, base = cand.rows_z, cand.n_present, cand.base
+    RW = _check_rows(rows_z, n_present, Q, K)
+    check_tensor(query_local, "query_local", torch.float32, (Q, 3))
+    check_tensor(query_valid, "query_valid", torch.bool, (Q,))
+    check_tensor(pose_t, "pose_t", torch.float32, (3,))
+    check_tensor(pose_R, "pose_R", torch.float32, (3, 3))
+    check_tensor(base, "base", torch.int32, (9, Q))
+    check_tensor(tab, "tab", torch.int32, (tab.shape[0], tab.shape[1]))
+    if tab.shape[1] < RW + 3 * K:
+        raise ValueError(f"table rows of width {tab.shape[1]} hold no normal lanes")
+    out = Match.empty(Q, query_local.device) if out is None else out
+    _launch(query_local.device, query_local, query_valid, pose_R, pose_t, rows_z,
+            n_present, base, tab, Q, K, RW, max_d2, out, with_normal=True)
+    return out
+
+
 def match_rows(q_world: torch.Tensor, rows_z, n_present: torch.Tensor, *,
                max_d2: float, max_points: int):
-    """K1: the plain version on CPU tensors, the CUDA kernel on CUDA ones.
+    """K1 in point mode: the plain version on CPU tensors, the CUDA kernel
+    on CUDA ones.
 
     q_world (Q, 3) float32; rows_z three (9*Q, RW) int32 candidate-row
     arrays; n_present (9, Q) int32. Returns (point (Q, 3) float32,
-    index (Q,) int32, d2 (Q,) float32).
+    index (Q,) int32, d2 (Q,) float32). The kernel gives 0 as the point of
+    a query without a valid candidate (the plain version candidate 0 of
+    column 0): compare points where d2 < max_d2.
     """
     if q_world.device.type == "cpu":
         return match_rows_plain(q_world, rows_z, n_present, max_d2=max_d2,
                                 max_points=max_points)
-    Q = q_world.shape[0]
-    K = max_points
-    RW = rows_z[0].shape[-1]
-    if RW < 3 * K + 1:
-        raise ValueError(f"rows of width {RW} cannot hold K={K} candidates")
+    Q, K = q_world.shape[0], max_points
+    RW = _check_rows(rows_z, n_present, Q, K)
     check_tensor(q_world, "q_world", torch.float32, (Q, 3))
-    for s, r in enumerate(rows_z):
-        check_tensor(r, f"rows_z[{s}]", torch.int32, (9 * Q, RW))
-    check_tensor(n_present, "n_present", torch.int32, (9, Q))
-    point = torch.empty((Q, 3), dtype=torch.float32, device=q_world.device)
-    index = torch.empty((Q,), dtype=torch.int32, device=q_world.device)
-    d2 = torch.empty((Q,), dtype=torch.float32, device=q_world.device)
-    fn = _build.c_function("match_rows", "match_rows_launch",
-                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                           + [ctypes.c_float] + [ctypes.c_void_p] * 4)
-    _build.launch(fn, q_world.device, q_world.data_ptr(), rows_z[0].data_ptr(),
-                  rows_z[1].data_ptr(), rows_z[2].data_ptr(), n_present.data_ptr(),
-                  Q, K, RW, float(max_d2), point.data_ptr(), index.data_ptr(),
-                  d2.data_ptr())
-    match_rows.launches += 1
-    return point, index, d2
+    dev = q_world.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = Match(torch.empty((Q, 3), **f32), None, None,
+                torch.empty((Q,), dtype=torch.int32, device=dev), torch.empty((Q,), **f32))
+    _launch(dev, q_world, None, None, None, rows_z, n_present, None, None, Q, K, RW,
+            max_d2, out, with_normal=False)
+    return out.plane_origin, out.index, out.d2
 
 
 match_rows.launches = 0

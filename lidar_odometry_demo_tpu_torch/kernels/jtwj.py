@@ -1,35 +1,43 @@
-"""Kernel K2 (``jtwj.cu``): the robust point-to-plane normal equations of one
-Gauss-Newton step, its plain PyTorch version, and its launch counter.
+"""Kernel K2 (``jtwj.cu``): one Gauss-Newton step of the point-to-plane ICP
+in one launch, its plain PyTorch version, and its launch counter.
 
 Replaces the TPU kernel ``lidar_odometry_demo_tpu/ops/pallas/jtwj.py``
-(``_jtwj_kernel`` / ``jtwj_accumulate``). It runs at every Gauss-Newton
-step, four per ICP outer round. One call moves ~0.3 MB at full width, so
-its time is bound by the launch, not by bytes or flops; the kernel is two
-small launches with a fixed-order, atomic-free reduction, so its result is
-bitwise repeatable (see the source's note).
+(``_jtwj_kernel`` / ``jtwj_accumulate``) and the scalar work that followed
+it on every step (the translation prior, the damping, the 6x6 solve and the
+pose update). It runs at every Gauss-Newton step, four per ICP outer round.
+One step moves ~0.3 MB at full width, so its time is the launch's, not the
+bytes' or the flops'; the kernel is one thread-block cluster with a
+fixed-order, atomic-free reduction through distributed shared memory, so
+its result is bitwise repeatable (see the source's note).
 
-On CPU tensors `jtwj_accumulate` runs the plain version; on CUDA tensors it
-launches the kernel or raises. There is no fallback between the two.
+Two entry points on the one kernel: `gn_step` (the whole step, the main
+path) and `jtwj_accumulate` (H and b alone, the epilogue off). Both count
+their launches in `jtwj_accumulate.launches`. On CPU tensors each runs its
+plain version; on CUDA tensors it launches the kernel or raises. There is
+no fallback between the two.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from lidar_odometry_demo_tpu_torch.kernels import _build
 from lidar_odometry_demo_tpu_torch.kernels._build import check_tensor
-from lidar_odometry_demo_tpu_torch.ops.se3 import rot_pts
+from lidar_odometry_demo_tpu_torch.ops import se3
 
 
 def jtwj_plain(source_local, plane_origin, plane_normal, valid, R, t, *,
                huber_delta: float):
     """(H (6, 6), b (6,)) without the translation prior: the JAX package's
     XLA formulation (``icp._normal_equations``) in float32."""
-    rp = rot_pts(source_local, R)
-    p_w = rp + t
-    r = torch.sum((p_w - plane_origin) * plane_normal, dim=-1)
+    rp = se3.rot_pts(source_local, R)
+    e = (rp + t - plane_origin) * plane_normal
+    # summed in a stated order, which the kernel repeats: with few
+    # correspondences the damped solve amplifies an ulp of r by ~1e6
+    r = e[:, 0] + e[:, 1] + e[:, 2]
     absr = torch.abs(r)
     # a tensor numerator: `float / tensor` would multiply by a reciprocal
     w = torch.where(absr <= huber_delta, 1.0,
@@ -44,9 +52,140 @@ def jtwj_plain(source_local, plane_origin, plane_normal, valid, R, t, *,
     return J.T @ Jw, Jw.T @ r
 
 
+def solve_spd_6x6(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve H x = b for SPD 6x6 by a fully unrolled Cholesky, with the JAX
+    package's 1e-12 pivot guard (same operation order, so CPU results agree
+    to rounding)."""
+    n = 6
+    L = [[None] * n for _ in range(n)]
+    for j in range(n):
+        s = H[j, j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        diag = torch.sqrt(torch.clamp_min(s, 1e-12))
+        L[j][j] = diag
+        inv_d = 1.0 / diag
+        for i in range(j + 1, n):
+            s = H[i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s * inv_d
+    y = [None] * n
+    for i in range(n):
+        s = b[i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return torch.stack(x)
+
+
+def prior_weight(cfg) -> float:
+    """Weight of the translation prior NormalPrior(diag(1/sigma))
+    (cloud_matcher.cpp:153-154)."""
+    inv_sigma = 1.0 / cfg.icp_translation_prior_sigma
+    return inv_sigma * inv_sigma
+
+
+def add_prior(H, b, t, guess_t, prior_w: float):
+    """H + diag(0, 0, 0, w, w, w), b + w (0, t - t_guess): the reference's
+    translation prior on (t - t_guess)."""
+    prior_diag = torch.diag(torch.tensor([0.0, 0.0, 0.0, prior_w, prior_w, prior_w],
+                                         dtype=torch.float32, device=H.device))
+    return H + prior_diag, b + prior_w * torch.cat([torch.zeros_like(t), t - guess_t])
+
+
+def gn_step_plain(corr, pose: se3.Pose, guess_t: torch.Tensor, cfg):
+    """One Gauss-Newton step as tensor ops: the normal equations, the
+    translation prior, H + damping diag(H) + 1e-9 I, solve_spd_6x6,
+    apply_delta and |delta| (the JAX package's ``icp._gn_steps`` body).
+
+    Returns (pose, step_norm, H, b), H and b before the prior and damping.
+    """
+    R = se3.quat_to_matrix(pose.q)
+    H0, b0 = jtwj_plain(corr.source_local, corr.plane_origin, corr.plane_normal,
+                        corr.valid, R, pose.t, huber_delta=cfg.icp_huber_delta)
+    H, b = add_prior(H0, b0, pose.t, guess_t, prior_weight(cfg))
+    eye = torch.eye(6, dtype=torch.float32, device=H.device)
+    H = H + cfg.icp_damping * torch.diag(torch.diag(H)) + 1e-9 * eye
+    delta = -solve_spd_6x6(H, b)
+    return se3.apply_delta(pose, delta), se3.norm(delta), H0, b0
+
+
+class GnWork(NamedTuple):
+    """Outputs of `steps` kernel steps, allocated once per ICP `align` and
+    reused by every round: slot k of `poses` holds step k's (t, q, |delta|);
+    H and b the last step's. `slots` are the per-step (Pose, step_norm)
+    views, made once."""
+
+    poses: torch.Tensor  # (steps, 8) float32
+    H: torch.Tensor      # (6, 6)
+    b: torch.Tensor      # (6,)
+    slots: tuple
+
+    @staticmethod
+    def empty(steps: int, device) -> "GnWork":
+        poses = torch.empty((steps, 8), dtype=torch.float32, device=device)
+        slots = tuple((se3.Pose(poses[k, :3], poses[k, 3:7]), poses[k, 7])
+                      for k in range(steps))
+        return GnWork(poses, torch.empty((6, 6), dtype=torch.float32, device=device),
+                      torch.empty((6,), dtype=torch.float32, device=device), slots)
+
+
+def _check_corr(source_local, plane_origin, plane_normal, valid) -> int:
+    Q = source_local.shape[0]
+    for name, x in (("source_local", source_local), ("plane_origin", plane_origin),
+                    ("plane_normal", plane_normal)):
+        check_tensor(x, name, torch.float32, (Q, 3))
+    check_tensor(valid, "valid", torch.bool, (Q,))
+    return Q
+
+
+def _launcher():
+    return _build.c_function("jtwj", "gn_step_launch",
+                             [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_float] * 3
+                             + [ctypes.c_void_p] * 4)
+
+
+def gn_step(corr, pose: se3.Pose, guess_t: torch.Tensor, cfg, *,
+            work: GnWork | None = None, slot: int = 0):
+    """K2, one whole Gauss-Newton step: the plain version on CPU tensors, one
+    kernel launch on CUDA ones.
+
+    corr: a Correspondence (source_local / plane_origin / plane_normal
+    (Q, 3) float32, valid (Q,) bool); pose (t (3,), q (4,)) and guess_t
+    (3,) float32. On CUDA the new pose, the step norm, H and b are views
+    into `work` (slot `slot` for the pose), valid until the next step that
+    writes them. Returns (pose, step_norm, H, b) as `gn_step_plain`.
+    """
+    if corr.source_local.device.type == "cpu":
+        return gn_step_plain(corr, pose, guess_t, cfg)
+    Q = _check_corr(*corr)
+    check_tensor(pose.t, "pose.t", torch.float32, (3,))
+    check_tensor(pose.q, "pose.q", torch.float32, (4,))
+    check_tensor(guess_t, "guess_t", torch.float32, (3,))
+    dev = corr.source_local.device
+    work = GnWork.empty(slot + 1, dev) if work is None else work
+    _build.launch(_launcher(), dev, corr.source_local.data_ptr(),
+                  corr.plane_origin.data_ptr(), corr.plane_normal.data_ptr(),
+                  corr.valid.data_ptr(), None, pose.t.data_ptr(), pose.q.data_ptr(),
+                  guess_t.data_ptr(), Q, float(cfg.icp_huber_delta),
+                  float(prior_weight(cfg)), float(cfg.icp_damping), work.H.data_ptr(),
+                  work.b.data_ptr(), work.poses[slot].data_ptr())
+    jtwj_accumulate.launches += 1
+    new_pose, step_norm = work.slots[slot]
+    return new_pose, step_norm, work.H, work.b
+
+
 def jtwj_accumulate(source_local, plane_origin, plane_normal, valid, R, t, *,
                     huber_delta: float):
-    """K2: the plain version on CPU tensors, the CUDA kernel on CUDA ones.
+    """K2 with the epilogue off, (H, b) without the prior: the plain version
+    on CPU tensors, the CUDA kernel on CUDA ones.
 
     source_local / plane_origin / plane_normal (Q, 3) float32, valid (Q,)
     bool, R (3, 3) and t (3,) float32; any Q.
@@ -54,25 +193,16 @@ def jtwj_accumulate(source_local, plane_origin, plane_normal, valid, R, t, *,
     if source_local.device.type == "cpu":
         return jtwj_plain(source_local, plane_origin, plane_normal, valid, R, t,
                           huber_delta=huber_delta)
-    Q = source_local.shape[0]
-    for name, x in (("source_local", source_local), ("plane_origin", plane_origin),
-                    ("plane_normal", plane_normal)):
-        check_tensor(x, name, torch.float32, (Q, 3))
-    check_tensor(valid, "valid", torch.bool, (Q,))
+    Q = _check_corr(source_local, plane_origin, plane_normal, valid)
     check_tensor(R, "R", torch.float32, (3, 3))
     check_tensor(t, "t", torch.float32, (3,))
-    blocks = _build.c_function("jtwj", "jtwj_blocks", [ctypes.c_int])
-    fn = _build.c_function("jtwj", "jtwj_launch",
-                           [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_float]
-                           + [ctypes.c_void_p] * 4)
     dev = source_local.device
-    partials = torch.empty((blocks(Q) * 27,), dtype=torch.float32, device=dev)
     H = torch.empty((6, 6), dtype=torch.float32, device=dev)
     b = torch.empty((6,), dtype=torch.float32, device=dev)
-    _build.launch(fn, dev, source_local.data_ptr(), plane_origin.data_ptr(),
-                  plane_normal.data_ptr(), valid.data_ptr(), R.data_ptr(),
-                  t.data_ptr(), Q, float(huber_delta), partials.data_ptr(),
-                  H.data_ptr(), b.data_ptr())
+    _build.launch(_launcher(), dev, source_local.data_ptr(), plane_origin.data_ptr(),
+                  plane_normal.data_ptr(), valid.data_ptr(), R.data_ptr(), t.data_ptr(),
+                  None, None, Q, float(huber_delta), 0.0, 0.0, H.data_ptr(),
+                  b.data_ptr(), None)
     jtwj_accumulate.launches += 1
     return H, b
 

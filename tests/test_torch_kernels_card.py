@@ -7,8 +7,12 @@ without JAX, with the repository's conftest left out:
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_card.py
 
 Tolerances: K1 index equal where valid, point and d2 within atol 1e-6 of
-its plain version; K2 within rtol 2e-5 / atol 1e-4 of its plain version
-and bitwise equal across two runs; K3 equal to its plain version and to
+its plain version; K1 in pose mode index and valid equal, origin, normal
+and d2 within atol 1e-6; K2 within rtol 2e-5 / atol 1e-4 of its plain
+version and bitwise equal across two runs; K2's whole step likewise for H
+and b, the pose within 1e-6 and the step norm within rtol 1e-5, bitwise
+equal across two runs and across 100 steps on one workspace; K3 equal to
+its plain version and to
 torch.searchsorted at every index; the TINY drives on the card (default and
 reference_parity) within 1e-4 m of the same drive through the port on the
 CPU, with equal ICP iteration counts and launch counts equal to the
@@ -20,13 +24,17 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
-from lidar_odometry_demo_tpu_torch.config import TINY, reference_parity
+from lidar_odometry_demo_tpu_torch.config import TINY, OdometryConfig, reference_parity
 from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
-from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows, match_rows_plain
-from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate, jtwj_plain
+from lidar_odometry_demo_tpu_torch.kernels.correspondence import (
+    match_correspondences, match_correspondences_plain, match_rows, match_rows_plain)
+from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
+    GnWork, gn_step, gn_step_plain, jtwj_accumulate, jtwj_plain)
 from lidar_odometry_demo_tpu_torch.kernels.search import search_sorted, search_sorted_plain
 from lidar_odometry_demo_tpu_torch.ops.cloud import scan_from_numpy
-from lidar_odometry_demo_tpu_torch.ops.voxel_map import EMPTY_KEY, _lanes
+from lidar_odometry_demo_tpu_torch.ops.se3 import Pose
+from lidar_odometry_demo_tpu_torch.ops.voxel_map import (
+    EMPTY_KEY, CandidateSet, Correspondence, _lanes)
 from lidar_odometry_demo_tpu_torch.pipeline import odometry
 
 pytestmark = pytest.mark.cuda
@@ -94,6 +102,91 @@ def test_jtwj_kernel_matches_plain_and_repeats(rng, Q):
     assert torch.allclose(b, bp, rtol=2e-5, atol=1e-4)
 
 
+def _step_inputs(rng, Q):
+    sl, po, pn, valid, R, t = _system(rng, Q)
+    q = Rotation.from_matrix(R.cpu().numpy().astype(np.float64)).as_quat()[[3, 0, 1, 2]]
+    pose = Pose(t, torch.from_numpy(q.astype(np.float32)).cuda())
+    return Correspondence(sl, po, pn, valid), pose, t + 0.05
+
+
+def _snapshot(step):
+    pose, norm, H, b = step
+    return [x.clone() for x in (pose.t, pose.q, norm, H, b)]
+
+
+@pytest.mark.parametrize("Q", [8192, 8115, 1])
+def test_gn_step_kernel_matches_plain_and_repeats(rng, Q):
+    _need_card()
+    cfg = OdometryConfig()
+    corr, pose, guess_t = _step_inputs(rng, Q)
+    work = GnWork.empty(2, "cuda")
+    before = jtwj_accumulate.launches
+    first = _snapshot(gn_step(corr, pose, guess_t, cfg, work=work, slot=1))
+    second = _snapshot(gn_step(corr, pose, guess_t, cfg, work=work, slot=1))
+    assert jtwj_accumulate.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    (pt, pq), pnorm, pH, pb = gn_step_plain(corr, pose, guess_t, cfg)
+    t, q, norm, H, b = first
+    assert torch.allclose(H, pH, rtol=2e-5, atol=1e-4)
+    assert torch.allclose(b, pb, rtol=2e-5, atol=1e-4)
+    assert torch.allclose(t, pt, atol=1e-6, rtol=0)
+    assert torch.allclose(q, pq, atol=1e-6, rtol=0)
+    assert torch.allclose(norm, pnorm, rtol=1e-5, atol=0)
+
+
+def test_gn_step_reuses_its_workspace(rng):
+    """The cluster's reduction and the workspace, 100 steps back to back."""
+    _need_card()
+    cfg = OdometryConfig()
+    corr, pose, guess_t = _step_inputs(rng, 8192)
+    work = GnWork.empty(1, "cuda")
+    first = _snapshot(gn_step(corr, pose, guess_t, cfg, work=work))
+    for _ in range(100):
+        out = gn_step(corr, pose, guess_t, cfg, work=work)
+    assert all(torch.equal(x, y) for x, y in zip(first, _snapshot(out)))
+
+
+def _fused(rng, Q, K, C=4096):
+    """K1's pose-mode inputs: candidates around each query's world position,
+    random column bases, a table of random normal lanes."""
+    RW, _, W = _lanes(K)
+    R = Rotation.from_euler("xyz", [0.03, -0.02, 0.4]).as_matrix().astype(np.float32)
+    t = np.array([2.0, -1.0, 0.3], np.float32)
+    local = rng.uniform(-5, 5, (Q, 3)).astype(np.float32)
+    q_world = local @ R.T + t
+    rows = np.zeros((3, 9, Q, RW), np.float32)
+    pts = q_world[None, None, :, None, :] + rng.normal(0, 0.25, (3, 9, Q, K, 3))
+    for i in range(3):
+        rows[..., i * K:(i + 1) * K] = pts[..., i]
+    rows[..., 3 * K] = rng.integers(0, K + 1, (3, 9, Q))
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    cand = CandidateSet(
+        rows_z=tuple(up(rows[s].reshape(9 * Q, RW).view(np.int32)) for s in range(3)),
+        base=up(rng.integers(0, C, (9, Q)).astype(np.int32)),
+        n_present=up(rng.integers(0, 4, (9, Q)).astype(np.int32)))
+    tab = up(rng.normal(0, 1, (C, W)).astype(np.float32).view(np.int32))
+    nrm_view = tab[:, RW:RW + 3 * K].view(torch.float32).reshape(C, K, 3)
+    return [up(local), up(rng.random(Q) < 0.9), up(t), up(R), cand], tab, nrm_view
+
+
+@pytest.mark.parametrize("shift", [0.0, 100.0])
+def test_match_correspondences_kernel_matches_plain(rng, shift):
+    """100 m away no query has a valid candidate."""
+    _need_card()
+    args, tab, nrm_view = _fused(rng, 8192, 20)
+    args[2] = args[2] + shift
+    max_d2 = float(np.float32(0.09))
+    before = match_rows.launches
+    got = match_correspondences(*args, tab, nrm_view, max_d2=max_d2, max_points=20)
+    assert match_rows.launches == before + 1
+    ref = match_correspondences_plain(*args, nrm_view, max_d2=max_d2, max_points=20)
+    n_valid = int(ref.valid.sum())
+    assert n_valid > 4096 if shift == 0.0 else n_valid == 0
+    assert torch.equal(got.index, ref.index) and torch.equal(got.valid, ref.valid)
+    for f in ("plane_origin", "plane_normal", "d2"):
+        assert torch.allclose(getattr(got, f), getattr(ref, f), atol=1e-6, rtol=0), f
+
+
 def test_wrappers_check_their_inputs_on_card(rng):
     _need_card()
     q, rows_z, n_present = _candidates(rng, 64, 20)
@@ -104,6 +197,13 @@ def test_wrappers_check_their_inputs_on_card(rng):
     sl, po, pn, valid, R, t = _system(rng, 64)
     with pytest.raises(ValueError, match="shape"):
         jtwj_accumulate(sl, po, pn, valid[:32], R, t, huber_delta=0.15)
+    corr, pose, guess_t = _step_inputs(rng, 64)
+    with pytest.raises(ValueError, match="shape"):
+        gn_step(corr, Pose(pose.t, pose.q[:3]), guess_t, OdometryConfig())
+    args, tab, nrm_view = _fused(rng, 64, 20)
+    with pytest.raises(ValueError, match="normal lanes"):
+        match_correspondences(*args, tab[:, :64].contiguous(), nrm_view, max_d2=0.09,
+                              max_points=20)
 
 
 def _drive_cpu_and_card(cfg, n_scans=5):

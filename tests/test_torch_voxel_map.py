@@ -198,6 +198,65 @@ def test_match_candidates_on_real_map_match_jax(rng):
     np.testing.assert_array_equal(tc.plane_normal.numpy(), np.asarray(jc.plane_normal))
 
 
+@pytest.mark.parametrize("turn", [0.0, 0.05])
+def test_match_correspondences_plain_matches_jax(rng, turn):
+    """K1's pose-mode plain version (the fused kernel's reference) against
+    the JAX match_candidates on a real map, at the identity and at a turned
+    and shifted pose, with some queries invalid."""
+    from scipy.spatial.transform import Rotation
+
+    from lidar_odometry_demo_tpu_torch.kernels.correspondence import (
+        match_correspondences_plain)
+
+    xyz, jm, tm = _structured_map(seed=11)
+    Q, K = 512, 20
+    R = Rotation.from_euler("z", turn).as_matrix().astype(np.float32)
+    t = np.array([turn, -turn / 2, 0.0], np.float32)
+    # local points that the pose maps near stored points
+    q = ((xyz[:Q] - t) @ R + rng.normal(0, 0.05, (Q, 3))).astype(np.float32)
+    qv = rng.random(Q) < 0.9
+    jcand = jvm.gather_candidates(jm, jvm.build_search_index(jm), jnp.asarray(q),
+                                  jnp.asarray(qv), jnp.asarray(t), jnp.asarray(R),
+                                  voxel_size=0.2)
+    jc = jvm.match_candidates(jm, jcand, jnp.asarray(q), jnp.asarray(qv), jnp.asarray(t),
+                              jnp.asarray(R), max_distance=0.3)
+    tcand = tvm.gather_candidates(tm, _t(q), _t(qv), _t(t), _t(R), voxel_size=0.2)
+    got = match_correspondences_plain(_t(q), _t(qv), _t(t), _t(R), tcand, tm.nrm,
+                                      max_d2=float(np.float32(0.09)), max_points=K)
+    valid = np.asarray(jc.valid)
+    assert 350 < valid.sum() < Q
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    np.testing.assert_array_equal(got.plane_origin.numpy()[valid],
+                                  np.asarray(jc.plane_origin)[valid])
+    np.testing.assert_array_equal(got.plane_normal.numpy()[valid],
+                                  np.asarray(jc.plane_normal)[valid])
+    assert not got.plane_origin.numpy()[~valid].any()
+    assert not got.plane_normal.numpy()[~valid].any()
+
+
+def test_fused_wrappers_refuse_non_cuda_devices():
+    """K1's pose mode and K2's step launch the CUDA kernel or raise off the
+    CPU; they never run the plain version on another device."""
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_correspondences
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import gn_step
+    from lidar_odometry_demo_tpu_torch.ops.se3 import Pose
+
+    meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, **meta)
+    cand = tvm.CandidateSet(rows_z=tuple(torch.zeros((9 * 8, 64), **i32) for _ in range(3)),
+                            base=torch.zeros((9, 8), **i32), n_present=torch.zeros((9, 8), **i32))
+    v3 = torch.zeros((8, 3), **meta)
+    valid = torch.zeros(8, dtype=torch.bool, **meta)
+    tab = torch.zeros((64, 128), **i32)
+    with pytest.raises(ValueError, match="CUDA"):
+        match_correspondences(v3, valid, torch.zeros(3, **meta), torch.zeros((3, 3), **meta),
+                              cand, tab, None, max_d2=0.09, max_points=20)
+    pose = Pose(torch.zeros(3, **meta), torch.zeros(4, **meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        gn_step(tvm.Correspondence(v3, v3, v3, valid), pose, pose.t, OdometryConfig())
+
+
 def _padded(xyz, nrm, capacity):
     """Points padded with invalid rows to `capacity`, in both frameworks."""
     n = xyz.shape[0]
