@@ -27,21 +27,29 @@ Phases, each of which raises (non-zero exit) on failure:
    map_update), if aligned ATE against ground truth exceeds 0.03 m or is
    not within 1e-4 m of 0.00936 m (the JAX package's and the port's
    earlier runs), or if any scan diverged;
-4. K3 search_sorted against its plain version and torch.searchsorted on the
-   card, index equal (max error 0): at the main path's two lookups (the
-   map's 131,072 keys after phase 3 with the 73,728 neighbourhood queries
-   and the 16,384 sorted map_update queries of one more scan), on the TPU
-   script's own fixture (131,072 keys, 221,184 queries, rng seed 0), on the
-   edges (below, at and just above keys[0], equal to a key, in the
-   EMPTY_KEY run, above every key) and with no queries; CUDA event times of
-   the kernel, the plain version and torch.searchsorted;
+4. K3's three modes against their plain versions on the card, bitwise: the
+   neighbourhood lookup (base and n_present everywhere, every present
+   candidate row) and map_update's group lookup (pos_c, found), recorded
+   from one more step of the bench drive from the main path's final state;
+   the bare search also against torch.searchsorted, index equal, at the
+   main path's two key sets (the map's 131,072 keys with the 73,728
+   neighbourhood start keys, and with the 16,384 sorted map_update
+   queries), on the TPU script's own fixture (131,072 keys, 221,184
+   queries, rng seed 0), on the edges (below, at and just above keys[0],
+   equal to a key, in the EMPTY_KEY run, above every key) and with no
+   queries. CUDA event times of every mode alone and as dispatched, of its
+   plain version and (bare search, and the group lookup's search part) of
+   torch.searchsorted, the present-slice count, each mode's bound and the
+   launch floor;
 5. the strict reference path, `reference_parity(OdometryConfig())` (ICP
    re-searches the map every round, up to 35 rounds, backwards deskew
    translation), through `LidarOdometry(device="cuda")` on the same drive:
    one timed pass, with the checks of phase 3 (the ATE bound of 0.03 m; in
    place of the 0.00936 m check, at most 0.0005 m from the NumPy oracle's
    trajectory `benchmarks/BASELINE_REF.tum`) and K3 once per ICP round and
-   once per map_update;
+   once per map_update; then K3's neighbourhood lookups (one per ICP round)
+   and group lookup of one more step on this path's map, bitwise against
+   their plain versions;
 6. the CLI on the card, in-process: `sim --scans 5` at full width with a
    TUM and a keyframe PCD written under chiprun_out/cli_smoke/; the TUM
    must hold 5 monotone rows and the PCD POINTS > 0, and every kernel must
@@ -509,65 +517,117 @@ def run_main_path(bench: dict, device):
     return odo, launches
 
 
-def run_reference_parity(bench: dict, device) -> dict:
+def run_reference_parity(bench: dict, device):
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig, reference_parity
 
     cfg = reference_parity(OdometryConfig())
     # the NumPy oracle's own trajectory, which this path reproduces
-    _, launches, iters = drive_path("reference_parity path", cfg, bench, device,
-                                    ate_ref_max=0.0005)
+    odo, launches, iters = drive_path("reference_parity path", cfg, bench, device,
+                                      ate_ref_max=0.0005)
     # K3: one neighbourhood lookup per ICP round (the map re-searched at the
     # round's pose), one per map_update (every scan)
     want = int(iters.sum()) + len(iters)
     if launches["search_sorted"] != want:
         raise AssertionError(f"reference_parity path: K3 launches {launches['search_sorted']}"
                              f" != ICP rounds + map_update calls {want}")
-    return launches
+    return odo, launches
 
 
 # --------------------------------------------------------------------------
-# phase 4: K3 against its plain version and torch.searchsorted
+# phase 4: K3's three modes against their plain versions
 # --------------------------------------------------------------------------
 
-def main_path_lookups(odo, scan) -> dict:
-    """The (keys, queries) of K3's two lookups on the main path: one more
-    step of the bench drive from the main path's final state, with the
-    lookup recorded (its launches are not counted: counts are zeroed before
-    every drive)."""
+def _clone(x):
+    import torch
+
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def path_lookups(odo, scan) -> dict:
+    """K3's lookups of one more step of the bench drive from a path's final
+    state, recorded with their inputs (cloned: the exact path rewrites its
+    pose buffers every round): {"neighbourhood": [(args, kwargs), ...],
+    "group": [(keys, queries), ...]}. Their launches are not counted:
+    counts are zeroed before every drive."""
     from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
     from lidar_odometry_demo_tpu_torch.pipeline.odometry import make_process_scan
 
-    calls = []
-    search = vm.search_sorted
+    calls = {"neighbourhood": [], "group": []}
+    neighbourhood, group = vm.neighborhood_lookup, vm.group_lookup
 
-    def recorded(keys, queries):
-        calls.append((keys, queries))
-        return search(keys, queries)
+    def recorded_neighbourhood(*args, **kwargs):
+        calls["neighbourhood"].append((tuple(_clone(a) for a in args),
+                                       {k: v for k, v in kwargs.items() if k != "out"}))
+        return neighbourhood(*args, **kwargs)
 
-    vm.search_sorted = recorded
+    def recorded_group(keys, queries):
+        calls["group"].append((keys.clone(), queries.clone()))
+        return group(keys, queries)
+
+    vm.neighborhood_lookup, vm.group_lookup = recorded_neighbourhood, recorded_group
     try:
         make_process_scan(odo.cfg)(odo.state, scan)
     finally:
-        vm.search_sorted = search
-    if len(calls) != 2:
-        raise AssertionError(f"expected 2 lookups in one main-path step, saw {len(calls)}")
-    return {"neighbourhood lookup": calls[0], "map_update lookup": calls[1]}
+        vm.neighborhood_lookup, vm.group_lookup = neighbourhood, group
+    if not calls["neighbourhood"] or len(calls["group"]) != 1:
+        raise AssertionError(f"expected neighbourhood lookups and one group lookup in one "
+                             f"step, saw {len(calls['neighbourhood'])} and {len(calls['group'])}")
+    return calls
 
 
-def check_search(device, lookups: dict) -> dict:
+def check_lookups(label: str, lookups: dict) -> int:
+    """Every recorded neighbourhood and group lookup, the kernel against its
+    plain version, bitwise: base and n_present everywhere, the present rows,
+    pos_c and found. Returns the first neighbourhood lookup's present-slice
+    count."""
     import torch
 
     from lidar_odometry_demo_tpu_torch.kernels.search import (
-        search_sorted, search_sorted_plain, search_steps)
-    from lidar_odometry_demo_tpu_torch.ops.voxel_map import EMPTY_KEY
+        group_lookup, group_lookup_plain, neighborhood_lookup, neighborhood_lookup_plain)
 
-    def library(keys, q):
-        return torch.searchsorted(keys, q, side="left", out_int32=True)
+    present = None
+    for i, (args, kwargs) in enumerate(lookups["neighbourhood"]):
+        got = neighborhood_lookup(*args, **kwargs)
+        ref = neighborhood_lookup_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        bad = [f for f in ("base", "n_present") if not torch.equal(getattr(got, f),
+                                                                    getattr(ref, f))]
+        npres = ref.n_present.reshape(-1)
+        bad += [f"rows of slice {s}" for s in range(3)
+                if not torch.equal(got.rows_z[s][npres > s], ref.rows_z[s][npres > s])]
+        if bad:
+            raise AssertionError(f"K3 neighbourhood lookup {i} on the {label}: {bad} differ")
+        if present is None:
+            present = int(npres.sum())
+    keys, q = lookups["group"][0]
+    pos_c, found = group_lookup(keys, q)
+    ref_pos, ref_found = group_lookup_plain(keys, q)
+    torch.cuda.synchronize()
+    if not (torch.equal(pos_c, ref_pos) and torch.equal(found, ref_found)):
+        raise AssertionError(f"K3 group lookup on the {label}: pos_c differs at "
+                             f"{int((pos_c != ref_pos).sum())}, found at "
+                             f"{int((found != ref_found).sum())} queries")
+    log(f"K3 on the {label}: {len(lookups['neighbourhood'])} neighbourhood lookups and the "
+        f"group lookup equal to their plain versions (bitwise); {present} present slices "
+        f"in the first, {int(found.sum())} of {q.numel()} groups found")
+    return present
+
+
+def _bare_search_checks(device, lookups: dict) -> dict:
+    """The bare search against its plain version and torch.searchsorted,
+    index equal: on the main path's two key sets (the neighbourhood lookup's
+    start keys, map_update's sorted queries), the TPU script's fixture, the
+    edges and no queries. Returns {label: (keys, queries)} of the shapes."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.kernels.search import (
+        neighborhood_start_keys, search_sorted, search_sorted_plain)
+    from lidar_odometry_demo_tpu_torch.ops.voxel_map import EMPTY_KEY
 
     def agree(label, keys, q):
         got = search_sorted(keys, q)
         plain = search_sorted_plain(keys, q)
-        lib = library(keys, q)
+        lib = torch.searchsorted(keys, q, side="left", out_int32=True)
         torch.cuda.synchronize()
         if got.dtype != torch.int32 or got.shape != q.shape:
             raise AssertionError(f"K3 {label}: {got.dtype} {tuple(got.shape)}")
@@ -577,18 +637,19 @@ def check_search(device, lookups: dict) -> dict:
                                      f"{int((got != ref).sum())} of {q.numel()} queries")
         return got
 
-    # the TPU script's own fixture
+    (tab, keys, origin, *pose_args), kwargs = lookups["neighbourhood"][0]
+    start = neighborhood_start_keys(origin, *pose_args, voxel_size=kwargs["voxel_size"])
     rng = np.random.default_rng(0)
     C = 131072
     fix_keys = torch.from_numpy(np.sort(rng.integers(0, 2**31, C)).astype(np.int32)).to(device)
     fix_q = torch.from_numpy(rng.integers(0, 2**31, 8192 * 27).astype(np.int32)).to(device)
-    shapes = dict(lookups)
-    shapes["TPU script fixture"] = (fix_keys, fix_q)
-    for label, (keys, q) in shapes.items():
-        agree(label, keys, q)
+    shapes = {"neighbourhood start keys": (keys, start),
+              "map_update queries": lookups["group"][0],
+              "TPU script fixture": (fix_keys, fix_q)}
+    for label, (k, q) in shapes.items():
+        agree(label, k, q)
 
     # the edges, on the main path's map (EMPTY_KEY tail) and on a tail-free table
-    keys = lookups["neighbourhood lookup"][0]
     n_live = int((keys != EMPTY_KEY).sum())
     k = keys.cpu().numpy().astype(np.int64)
     gaps = np.nonzero(np.diff(k[:n_live]) >= 2)[0]
@@ -613,30 +674,83 @@ def check_search(device, lookups: dict) -> dict:
     torch.cuda.synchronize()
     if empty.shape != (0,) or search_sorted.launches != before:
         raise AssertionError("K3 with no queries must return an empty tensor without a launch")
+    return shapes
 
+
+def _time_modes(lookups: dict, shapes: dict, n_present: int) -> list[dict]:
+    """CUDA event times of each mode at the main path's shapes: the kernel
+    alone and as dispatched, its plain version and, where one PyTorch call
+    computes the same function, that call; with each mode's bound."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.kernels.search import (
+        group_lookup, group_lookup_plain, neighborhood_lookup, neighborhood_lookup_plain,
+        search_sorted, search_sorted_plain, search_steps)
+
+    args, kwargs = lookups["neighbourhood"][0]
+    tab, keys = args[0], args[1]
+    C, W = tab.shape
+    Q, RW = args[3].shape[0], kwargs["row_width"]
+    out = neighborhood_lookup(*args, **kwargs)
+    gkeys, gq = lookups["group"][0]
+    steps = search_steps(C)
+
+    def library(k, q):
+        return torch.searchsorted(k, q, side="left", out_int32=True)
+
+    modes = [
+        # (mode, shape, fn, plain, library call, bytes, operations)
+        ("neighbourhood lookup", f"Q={Q} (9Q={9 * Q} columns), C={C}, RW={RW}, "
+         f"{n_present} present slices",
+         lambda: neighborhood_lookup(*args, **kwargs, out=out),
+         lambda: neighborhood_lookup_plain(*args, **kwargs), None,
+         # queries, flags, pose, origin, the keys once, base and n_present,
+         # each present row read and written
+         13.0 * Q + 60 + 4.0 * C + 8.0 * 9 * Q + 2.0 * 4 * RW * n_present,
+         9.0 * Q * (24 + steps)),
+        ("group lookup", f"N={gq.numel()} sorted, C={gkeys.numel()}",
+         lambda: group_lookup(gkeys, gq), lambda: group_lookup_plain(gkeys, gq), None,
+         4.0 * gkeys.numel() + 9.0 * gq.numel(), float(gq.numel() * (steps + 2))),
+    ]
+    for label, (k, q) in shapes.items():
+        modes.append((f"bare search, {label}", f"N={q.numel()}, C={k.numel()}",
+                      lambda k=k, q=q: search_sorted(k, q),
+                      lambda k=k, q=q: search_sorted_plain(k, q),
+                      lambda k=k, q=q: library(k, q),
+                      4.0 * k.numel() + 8.0 * q.numel(), float(q.numel() * steps)))
     timed = []
-    for label, (keys, q) in shapes.items():
-        ms = time_ms(lambda: search_sorted(keys, q), 200)
-        call_ms = time_ms(lambda: search_sorted(keys, q), 200, queue_first=False)
-        plain_ms = time_ms(lambda: search_sorted_plain(keys, q), 20)
-        library_ms = time_ms(lambda: library(keys, q), 200)
-        C, N = keys.numel(), q.numel()
-        # keys read once, each query read and each index written once;
-        # one comparison per step and query
-        b_ms, b_by = bound_ms(4.0 * C + 8.0 * N, float(N * search_steps(C)))
-        log(f"kernel search_sorted (K3), {label}: C={C} N={N} max_abs_err=0 kernel "
-            f"{ms:.4f} ms on the card ({call_ms:.4f} ms per call as dispatched), plain "
-            f"{plain_ms:.4f} ms, torch.searchsorted {library_ms:.4f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by})")
-        timed.append(dict(shape=label, C=C, N=N, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+    for mode, shape, fn, plain, lib, n_bytes, n_ops in modes:
+        ms = time_ms(fn, 200)
+        call_ms = time_ms(fn, 200, queue_first=False)
+        plain_ms = time_ms(plain, 10)
+        library_ms = time_ms(lib, 200) if lib is not None else None
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        log(f"kernel search_sorted (K3), {mode}: {shape}; max_abs_err=0 kernel {ms:.4f} ms "
+            f"on the card ({call_ms:.4f} ms per call as dispatched), plain {plain_ms:.4f} ms, "
+            + (f"torch.searchsorted {library_ms:.4f} ms, " if lib is not None else "")
+            + f"bound {b_ms:.5f} ms ({b_by})")
+        timed.append(dict(mode=mode, shape=shape, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
-    head = timed[0]  # the neighbourhood lookup: once per ICP round on the exact path
+    # the group lookup's search part alone, by the library
+    timed[1]["searchsorted_ms"] = time_ms(lambda: library(gkeys, gq), 200)
+    return timed
+
+
+def check_search(device, main_lookups: dict) -> dict:
+    import torch
+
+    present = check_lookups("main path's map", main_lookups)
+    shapes = _bare_search_checks(device, main_lookups)
+    timed = _time_modes(main_lookups, shapes, present)
+    x = torch.zeros(1, device=device)
+    floor_ms = time_ms(lambda: x.add_(1.0), 200)
+    head = timed[0]  # the neighbourhood lookup: the main path's mode
     return dict(name="search_sorted", route="cuda",
                 source="lidar_odometry_demo_tpu_torch/kernels/search.cu",
-                replaces="scripts/pallas_search_exp.py:39", redesigned=None, max_abs_err=0.0,
+                replaces="scripts/pallas_search_exp.py:39", redesigned="PR 4", max_abs_err=0.0,
                 ms=head["ms"], call_ms=head["call_ms"], plain_ms=head["plain_ms"],
-                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                library_ms=head["library_ms"], shapes=timed)
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
+                present_slices=present, launch_floor_ms=floor_ms, modes=timed)
 
 
 # --------------------------------------------------------------------------
@@ -694,8 +808,9 @@ def main() -> int:
     kernels = [check_match_rows(rng, device), check_jtwj(rng, device)]
     bench = bench_drive(device)
     odo, launches = run_main_path(bench, device)
-    kernels.append(check_search(device, main_path_lookups(odo, bench["scans"][-1])))
-    parity = run_reference_parity(bench, device)
+    kernels.append(check_search(device, path_lookups(odo, bench["scans"][-1])))
+    parity_odo, parity = run_reference_parity(bench, device)
+    check_lookups("reference_parity path's map", path_lookups(parity_odo, bench["scans"][-1]))
     cli_launches = run_cli()
     for k in kernels:
         k["launches"] = launches[k["name"]]

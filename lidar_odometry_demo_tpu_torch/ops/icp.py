@@ -12,8 +12,8 @@
   the stall exit and the best-pose exit. Each round re-matches the
   candidates cached once per scan at the guess pose
   (``icp_cached_candidates``, the default) or re-searches the map at the
-  current pose (the reference's findMatchingPairs per round, kernel K3 then
-  the row gathers); kernel K1 picks the winners either way.
+  current pose (the reference's findMatchingPairs per round: one launch of
+  kernel K3's neighbourhood lookup); kernel K1 picks the winners either way.
 
 The outer loop is Python control flow: each round reads its exit condition
 from the device (one synchronisation per round).
@@ -66,13 +66,16 @@ def make_align(cfg: OdometryConfig):
               guess: se3.Pose) -> IcpResult:
         dev = query_xyz.device
         f32 = dict(dtype=torch.float32, device=dev)
+        Q = query_xyz.shape[0]
         if cfg.icp_cached_candidates:
             cand = vm.gather_candidates(
                 m, query_xyz, query_valid, guess.t,
                 se3.quat_to_matrix(guess.q), voxel_size=voxel_size)
+        else:  # K3's candidates, rewritten every round
+            cand_out = vm.CandidateSet.empty(Q, vm._lanes(m.max_points)[0], dev)
         nrm_view = m.nrm  # derived once per scan, not once per round
         # K1's and K2's outputs, allocated once and rewritten every round
-        match_out = vm.Match.empty(query_xyz.shape[0], dev)
+        match_out = vm.Match.empty(Q, dev)
         gn_work = GnWork.empty(cfg.icp_inner_iterations, dev)
         tol = torch.tensor(cfg.icp_convergence_step_norm, **f32)
 
@@ -94,7 +97,8 @@ def make_align(cfg: OdometryConfig):
             else:  # re-search the table at the current pose every round
                 corr = vm.find_correspondences(m, query_xyz, query_valid, pose.t, R,
                                                voxel_size=voxel_size, max_distance=max_dist,
-                                               nrm_view=nrm_view, out=match_out)
+                                               nrm_view=nrm_view, out=match_out,
+                                               cand_out=cand_out)
             n_matches = torch.sum(corr.valid, dtype=torch.int32)
             # robust mean cost of this pose on its own correspondence set
             p_w = se3.rot_pts(corr.source_local, R) + pose.t

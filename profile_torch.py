@@ -11,7 +11,8 @@ in device synchronisations to time each stage's wall time over scans
 1..39, and profiles N steady-state scans (default 5, scans 30..34) of a
 third pass with `torch.profiler`. Prints the card, per-stage ms/scan, wall
 time per scan, the device's busy time and idle share over the profiled
-window, device kernel launches per scan, and the operations with the most
+window, device kernel launches per scan, each of the port's kernels' launches
+per scan and device time per launch, and the operations with the most
 device time; with --out, writes the full tables (by device and by host
 time) to FILE. Exits non-zero without a CUDA device.
 """
@@ -24,6 +25,11 @@ import os
 import subprocess
 import sys
 import time
+
+
+# the port's kernels by their CUDA function names
+KERNELS = ("match_kernel", "gn_step_kernel", "neighborhood_kernel", "group_kernel",
+           "search_kernel")
 
 
 def stage_timer(stage_s: dict, name: str, fn):
@@ -131,6 +137,12 @@ def main() -> int:
           f"(with the profiler on)")
     print(f"profile: device busy {device_us / 1e3 / n:.3f} ms/scan, idle share "
           f"{1 - device_us / 1e6 / wall:.4f}, {launches / n:.1f} device kernel launches/scan")
+    # the port's own kernels (K1, K2, K3's three modes), per launch
+    for e in device:
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        if name in KERNELS:
+            print(f"profile: {name}: {e.count / n:.1f} launches/scan, "
+                  f"{e.self_device_time_total / e.count / 1e3:.4f} ms per launch")
     table = events.table(sort_by="self_device_time_total", row_limit=40)
     print("\n".join(table.splitlines()[:20]))
     if not args.out:

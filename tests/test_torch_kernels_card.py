@@ -13,7 +13,9 @@ version and bitwise equal across two runs; K2's whole step likewise for H
 and b, the pose within 1e-6 and the step norm within rtol 1e-5, bitwise
 equal across two runs and across 100 steps on one workspace; K3 equal to
 its plain version and to
-torch.searchsorted at every index; the TINY drives on the card (default and
+torch.searchsorted at every index, and its neighbourhood and group lookups
+bitwise equal to their plain versions (base and n_present everywhere, the
+present candidate rows, pos_c and found); the TINY drives on the card (default and
 reference_parity) within 1e-4 m of the same drive through the port on the
 CPU, with equal ICP iteration counts and launch counts equal to the
 schedule.
@@ -25,13 +27,16 @@ import torch
 from scipy.spatial.transform import Rotation
 
 from lidar_odometry_demo_tpu_torch.config import TINY, OdometryConfig, reference_parity
-from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
+from lidar_odometry_demo_tpu_torch.io.simulator import sample_structured_cloud, simulate_sequence
 from lidar_odometry_demo_tpu_torch.kernels.correspondence import (
     match_correspondences, match_correspondences_plain, match_rows, match_rows_plain)
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
     GnWork, gn_step, gn_step_plain, jtwj_accumulate, jtwj_plain)
-from lidar_odometry_demo_tpu_torch.kernels.search import search_sorted, search_sorted_plain
-from lidar_odometry_demo_tpu_torch.ops.cloud import scan_from_numpy
+from lidar_odometry_demo_tpu_torch.kernels.search import (
+    group_lookup, group_lookup_plain, neighborhood_lookup, neighborhood_lookup_plain,
+    search_sorted, search_sorted_plain)
+from lidar_odometry_demo_tpu_torch.ops import voxel_map as tvm
+from lidar_odometry_demo_tpu_torch.ops.cloud import PointsWithNormals, scan_from_numpy
 from lidar_odometry_demo_tpu_torch.ops.se3 import Pose
 from lidar_odometry_demo_tpu_torch.ops.voxel_map import (
     EMPTY_KEY, CandidateSet, Correspondence, _lanes)
@@ -283,3 +288,144 @@ def test_search_kernel_small_tables_and_no_queries(rng):
     assert out.shape == (0,) and search_sorted.launches == before  # no launch
     with pytest.raises(ValueError, match="int32"):
         search_sorted(keys.long(), q)
+
+
+# (capacity, points per plane of the structured cloud, queries): the bench
+# drive's map and match budget, and TINY's
+_LOOKUP_SHAPES = {"bench": (131072, 6000, 8192), "tiny": (TINY.map_capacity, 300,
+                                                         TINY.max_match_points)}
+
+
+def _card_map(capacity, n_per_plane, seed=4):
+    """A keyframe map built on the card (map_insert, voxel 0.2 m, K = 20)
+    from a structured cloud, and the cloud."""
+    xyz, nrm = sample_structured_cloud(seed=seed, n_per_plane=n_per_plane)
+    pts = PointsWithNormals(torch.from_numpy(xyz).cuda(), torch.from_numpy(nrm).cuda(),
+                            torch.ones(xyz.shape[0], dtype=torch.bool, device="cuda"))
+    m = tvm.map_insert(tvm.map_init(capacity, 20, "cuda"), pts, voxel_size=0.2)
+    return m, xyz
+
+
+def _lookup_args(rng, m, xyz, Q, turn):
+    """Local queries near stored points under a pose turned by `turn` and
+    shifted, with some outside the column window, some beyond the z window
+    and about 5 % invalid; the lookup's positional arguments."""
+    R = Rotation.from_euler("z", turn).as_matrix().astype(np.float32)
+    t = np.array([turn, -2 * turn, 0.1 * turn], np.float32)
+    world = xyz[rng.integers(0, xyz.shape[0], Q)] + rng.normal(0, 0.15, (Q, 3))
+    world[:16] += 150.0
+    world[16:32, 2] += rng.uniform(-30, 30, 16)
+    local = ((world.astype(np.float32) - t) @ R).astype(np.float32)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    return (m.tab, m.keys, m.origin, up(local), up(rng.random(Q) < 0.95), up(t), up(R))
+
+
+def _assert_same_candidates(got, ref):
+    """base and n_present equal everywhere, present rows bitwise."""
+    assert torch.equal(got.base, ref.base)
+    assert torch.equal(got.n_present, ref.n_present)
+    npres = ref.n_present.reshape(-1)
+    for s in range(3):
+        live = npres > s
+        assert torch.equal(got.rows_z[s][live], ref.rows_z[s][live]), f"slice {s}"
+
+
+@pytest.mark.parametrize("turn", [0.0, 0.3])
+@pytest.mark.parametrize("shape", ["bench", "tiny"])
+def test_neighborhood_lookup_kernel_matches_plain(rng, shape, turn):
+    _need_card()
+    capacity, n_per_plane, Q = _LOOKUP_SHAPES[shape]
+    m, xyz = _card_map(capacity, n_per_plane)
+    args = _lookup_args(rng, m, xyz, Q, turn)
+    RW, _, _ = _lanes(20)
+    before = search_sorted.launches
+    got = neighborhood_lookup(*args, voxel_size=0.2, row_width=RW)
+    assert search_sorted.launches == before + 1
+    ref = neighborhood_lookup_plain(*args, voxel_size=0.2, row_width=RW)
+    n = ref.n_present.cpu().numpy()
+    assert (n == 3).sum() > Q // 4 and (n == 0).sum() > 16
+    _assert_same_candidates(got, ref)
+
+
+def test_neighborhood_lookup_on_voxel_boundaries(rng):
+    """Queries whose world points fall exactly on voxel boundaries, and one
+    ulp to either side, after a quarter turn (exact in float32) and a
+    shift: a division by the reciprocal would move some of them a voxel."""
+    _need_card()
+    m, _ = _card_map(*_LOOKUP_SHAPES["bench"][:2])
+    R = np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1]], np.float32)
+    t = np.array([0.4, -0.2, 0.0], np.float32)
+    k = np.concatenate([rng.integers(-40, 40, (2048, 2)), rng.integers(0, 2, (2048, 1))], 1)
+    world = (k * np.float32(0.2)).astype(np.float32)  # z on the ground's voxels
+    world = np.concatenate([world, np.nextafter(world, np.inf), np.nextafter(world, -np.inf)])
+    local = ((world - t) @ R).astype(np.float32)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    args = (m.tab, m.keys, m.origin, up(local), up(np.ones(len(local), bool)), up(t), up(R))
+    RW, _, _ = _lanes(20)
+    got = neighborhood_lookup(*args, voxel_size=0.2, row_width=RW)
+    ref = neighborhood_lookup_plain(*args, voxel_size=0.2, row_width=RW)
+    assert int((ref.n_present > 0).sum()) > 2 * len(local)
+    _assert_same_candidates(got, ref)
+
+
+def test_neighborhood_lookup_reuses_its_output(rng):
+    """100 back-to-back lookups into one preallocated CandidateSet (the
+    exact-search loop's) equal the first."""
+    _need_card()
+    capacity, n_per_plane, Q = _LOOKUP_SHAPES["bench"]
+    m, xyz = _card_map(capacity, n_per_plane)
+    args = _lookup_args(rng, m, xyz, Q, 0.3)
+    RW, _, _ = _lanes(20)
+    out = tvm.CandidateSet.empty(Q, RW, "cuda")
+    first = neighborhood_lookup(*args, voxel_size=0.2, row_width=RW)
+    first = tvm.CandidateSet(tuple(r.clone() for r in first.rows_z), first.base.clone(),
+                             first.n_present.clone())
+    for _ in range(100):
+        got = neighborhood_lookup(*args, voxel_size=0.2, row_width=RW, out=out)
+    assert got is out
+    _assert_same_candidates(got, first)
+
+
+@pytest.mark.parametrize("shape", ["bench", "tiny"])
+def test_group_lookup_kernel_matches_plain(rng, shape):
+    """map_update's lookup: an EMPTY_KEY tail in the table and in the sorted
+    queries, groups absent from the table, the last live key; N = 0 gives
+    no launch."""
+    _need_card()
+    C, N = (131072, 16384) if shape == "bench" else (TINY.map_capacity,
+                                                      TINY.max_update_points)
+    n_live = int(C * 0.68)
+    live = np.sort(rng.choice(2**30, n_live, replace=False)).astype(np.int32)
+    keys_np = np.concatenate([live, np.full(C - n_live, EMPTY_KEY, np.int32)])
+    n_valid = int(N * 0.9)
+    q_np = np.concatenate([live[rng.integers(0, n_live, n_valid // 2)],
+                           rng.integers(0, 2**30, n_valid - n_valid // 2 - 1).astype(np.int32),
+                           [live[-1]], np.full(N - n_valid, EMPTY_KEY, np.int32)])
+    keys, q = torch.from_numpy(keys_np).cuda(), torch.from_numpy(np.sort(q_np)).cuda()
+    before = search_sorted.launches
+    pos_c, found = group_lookup(keys, q)
+    assert search_sorted.launches == before + 1
+    ref_pos, ref_found = group_lookup_plain(keys, q)
+    assert torch.equal(pos_c, ref_pos) and torch.equal(found, ref_found)
+    assert int(found.sum()) >= n_valid // 2 and not bool(found[q == EMPTY_KEY].any())
+    assert bool(found[q == int(live[-1])].all())
+    empty = group_lookup(keys, q[:0])
+    assert empty[0].shape == empty[1].shape == (0,) and search_sorted.launches == before + 1
+
+
+def test_lookup_wrappers_check_their_inputs_on_card(rng):
+    _need_card()
+    m, xyz = _card_map(4096, 300)
+    args = list(_lookup_args(rng, m, xyz, 64, 0.0))
+    RW, _, _ = _lanes(20)
+    with pytest.raises(ValueError, match="float32"):
+        neighborhood_lookup(*args[:3], args[3].double(), *args[4:], voxel_size=0.2,
+                            row_width=RW)
+    with pytest.raises(ValueError, match="shape"):
+        neighborhood_lookup(*args, voxel_size=0.2, row_width=RW,
+                            out=tvm.CandidateSet.empty(32, RW, "cuda"))
+    with pytest.raises(ValueError, match="int32"):
+        group_lookup(m.keys.long(), m.keys)
+    meta = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        group_lookup(meta, meta)

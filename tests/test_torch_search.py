@@ -1,8 +1,9 @@
-"""Port parity: kernel K3's plain version (the sorted-key lookup) against
+"""Port parity: kernel K3's plain versions (the sorted-key lookup) against
 `jnp.searchsorted` (the TPU script's own yardstick,
-scripts/pallas_search_exp.py:62) and `torch.searchsorted` (CPU).
+scripts/pallas_search_exp.py:62) and `torch.searchsorted` (CPU): the bare
+search, and map_update's group lookup against the JAX `_update_impl`'s.
 
-Tolerance: none; every index is equal.
+Tolerance: none; every index and flag is equal.
 """
 
 import jax.numpy as jnp
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 from lidar_odometry_demo_tpu_torch.kernels.search import (
-    search_sorted, search_sorted_plain, search_steps)
+    group_lookup, group_lookup_plain, neighborhood_lookup, search_sorted, search_sorted_plain,
+    search_steps)
 from lidar_odometry_demo_tpu_torch.ops.voxel_map import EMPTY_KEY
 
 C_MAP = 131072  # the full map's capacity, 2^17
@@ -114,3 +116,57 @@ def test_search_wrapper_refuses_non_cuda_devices():
     keys = torch.zeros(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         search_sorted(keys, torch.zeros(4, dtype=torch.int32, device="meta"))
+
+
+def _group_case(rng, C, n_live):
+    """map_update's group lookup inputs: a table with an EMPTY_KEY tail and
+    sorted incoming keys holding groups present in it, groups absent from
+    it, the last live key, keys above it and an EMPTY_KEY tail."""
+    keys = _map_like_keys(rng, C, n_live)
+    live = keys[:n_live]
+    present = live[rng.integers(0, n_live, 300)]
+    absent = np.setdiff1d(rng.integers(0, 2**30, 300).astype(np.int32), live)
+    q = np.concatenate([present, present[:50], absent, [live[-1], live[-1], live[0]],
+                        [live[-1] + 1], np.full(40, EMPTY_KEY, np.int32)])
+    return keys, np.sort(q).astype(np.int32)
+
+
+@pytest.mark.parametrize("C,n_live", [(4096, 2900), (C_MAP, 88923), (512, 512)])
+def test_group_lookup_plain_matches_jax(rng, C, n_live):
+    """K3's group lookup against jnp.searchsorted and the found test of the
+    JAX _update_impl (lidar_odometry_demo_tpu/ops/voxel_map.py:762-764)."""
+    keys, q = _group_case(rng, C, n_live)
+    pos = jnp.searchsorted(jnp.asarray(keys), jnp.asarray(q)).astype(jnp.int32)
+    jpos_c = jnp.minimum(pos, C - 1)
+    jfound = (jnp.asarray(q) != EMPTY_KEY) & (jnp.asarray(keys)[jpos_c] == jnp.asarray(q))
+    for fn in (group_lookup_plain, group_lookup):
+        pos_c, found = fn(_t(keys), _t(q))
+        assert pos_c.dtype == torch.int32 and found.dtype == torch.bool
+        np.testing.assert_array_equal(pos_c.numpy(), np.asarray(jpos_c))
+        np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+    found = found.numpy()
+    assert found.sum() >= 350 and not found[q == EMPTY_KEY].any()
+    last = q == keys[n_live - 1]
+    assert found[last].all() and (pos_c.numpy()[last] == n_live - 1).all()
+    assert not found[np.isin(q, keys, invert=True)].any()
+
+
+def test_group_lookup_without_queries():
+    keys = np.arange(16, dtype=np.int32)
+    pos_c, found = group_lookup(_t(keys), _t(np.zeros(0, np.int32)))
+    assert pos_c.shape == found.shape == (0,)
+    assert pos_c.dtype == torch.int32 and found.dtype == torch.bool
+
+
+def test_lookup_wrappers_refuse_non_cuda_devices():
+    """Off the CPU the neighbourhood and group lookups launch the CUDA
+    kernel or raise; they never run the plain version on another device."""
+    meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        group_lookup(torch.zeros(8, **i32), torch.zeros(4, **i32))
+    with pytest.raises(ValueError, match="CUDA"):
+        neighborhood_lookup(torch.zeros((64, 128), **i32), torch.zeros(64, **i32),
+                            torch.zeros(3, **i32), torch.zeros((8, 3), **meta),
+                            torch.zeros(8, dtype=torch.bool, **meta), torch.zeros(3, **meta),
+                            torch.zeros((3, 3), **meta), voxel_size=0.2, row_width=64)

@@ -1,9 +1,11 @@
-"""Port parity: voxel keys, downsample, neighbourhood search, the K1
-re-match and map maintenance against the JAX package (CPU).
+"""Port parity: voxel keys, downsample, neighbourhood search (K3's
+neighbourhood lookup), the K1 re-match and map maintenance against the JAX
+package (CPU).
 
 Tolerances: keys, downsample, n_present and map_update's keys / count /
 origin bitwise equal; base equal wherever n_present > 0 (elsewhere it only
-addresses masked rows); tab compared on live rows only, on the point and
+addresses masked rows), and the lookup's present candidate rows and world
+points bitwise; tab compared on live rows only, on the point and
 normal lanes below count plus the count and anchor lanes (the other lanes
 of a row may hold stale data by design). K1's plain version against the
 Pallas kernel in interpret mode: index equal where valid, point and d2
@@ -122,6 +124,73 @@ def test_neighborhood_slots_match_jax(rng):
     np.testing.assert_array_equal(tn.numpy(), jn)
     present = jn > 0
     np.testing.assert_array_equal(tbase.numpy()[present], jbase[present])
+
+
+def _lookup_queries(rng, xyz, Q, R, t):
+    """Local queries that the pose (R, t) maps near stored points, with some
+    outside the map's column window, some beyond its z window and about 5 %
+    invalid."""
+    world = xyz[rng.integers(0, xyz.shape[0], Q)] + rng.normal(0, 0.15, (Q, 3))
+    world[:16] += 150.0
+    world[16:32, 2] += rng.uniform(-30, 30, 16)
+    local = ((world.astype(np.float32) - t) @ R).astype(np.float32)
+    return local, rng.random(Q) < 0.95
+
+
+@pytest.mark.parametrize("turn", [0.0, 0.3])
+def test_neighborhood_lookup_plain_matches_jax(rng, turn):
+    """K3's neighbourhood lookup (plain version) against the JAX
+    gather_candidates + _neighborhood_slots, at the identity and at a turned,
+    shifted pose: n_present and present base equal, present rows bitwise."""
+    from scipy.spatial.transform import Rotation
+
+    from lidar_odometry_demo_tpu_torch.kernels.search import neighborhood_lookup_plain
+
+    xyz, jm, tm = _structured_map(seed=4)
+    Q, K = 1024, 20
+    RW, _, _ = tvm._lanes(K)
+    R = Rotation.from_euler("z", turn).as_matrix().astype(np.float32)
+    t = np.array([turn, -2 * turn, 0.1 * turn], np.float32)
+    q, qv = _lookup_queries(rng, xyz, Q, R, t)
+    jcand = jvm.gather_candidates(jm, jvm.build_search_index(jm), jnp.asarray(q),
+                                  jnp.asarray(qv), jnp.asarray(t), jnp.asarray(R),
+                                  voxel_size=0.2)
+    args = (tm.tab, tm.keys, tm.origin, _t(q), _t(qv), _t(t), _t(R))
+    for fn in (neighborhood_lookup_plain, tvm.neighborhood_lookup):
+        cand = fn(*args, voxel_size=0.2, row_width=RW)
+        jn = np.asarray(jcand.n_present)
+        assert (jn == 3).sum() > 100 and (jn == 0).sum() > 16
+        np.testing.assert_array_equal(cand.n_present.numpy(), jn)
+        present = jn > 0
+        np.testing.assert_array_equal(cand.base.numpy()[present],
+                                      np.asarray(jcand.base)[present])
+        for s in range(3):
+            live = jn.reshape(-1) > s
+            np.testing.assert_array_equal(cand.rows_z[s].numpy()[live],
+                                          np.asarray(jcand.rows_z[s])[live])
+
+
+def test_query_world_matches_jax_bitwise(rng):
+    """The lookup's world points are the JAX package's rot_pts(q, R) + t bit
+    for bit (the voxel a point lands in depends on every bit), here on
+    points a turned pose sends to within an ulp or so of voxel boundaries."""
+    from scipy.spatial.transform import Rotation
+
+    from lidar_odometry_demo_tpu_torch.kernels.search import query_world
+    from lidar_odometry_demo_tpu_torch.ops.se3 import rot_pts
+
+    R = Rotation.from_euler("xyz", [0.02, -0.03, 0.7]).as_matrix().astype(np.float32)
+    t = np.array([3.1, -0.7, 0.25], np.float32)
+    edges = (rng.integers(-400, 400, (4096, 3)) * np.float32(0.2)).astype(np.float32)
+    q = np.concatenate([((edges - t) @ R).astype(np.float32),
+                        rng.uniform(-60, 60, (4096, 3)).astype(np.float32)])
+    got = query_world(_t(q), _t(R), _t(t)).numpy()
+    want = np.asarray(jvm._rot_pts_exact(jnp.asarray(q), jnp.asarray(R)) + jnp.asarray(t))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(got, (rot_pts(_t(q), _t(R)) + _t(t)).numpy())
+    # and the voxel each lands in
+    np.testing.assert_array_equal(tvm.voxel_indices(_t(got), 0.2).numpy(),
+                                  np.asarray(jvm.voxel_indices(jnp.asarray(want), 0.2)))
 
 
 def _candidate_rows(rng, Q, K):
