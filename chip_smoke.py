@@ -53,12 +53,30 @@ Phases, each of which raises (non-zero exit) on failure:
 6. the CLI on the card, in-process: `sim --scans 5` at full width with a
    TUM and a keyframe PCD written under chiprun_out/cli_smoke/; the TUM
    must hold 5 monotone rows and the PCD POINTS > 0, and every kernel must
-   have launched.
+   have launched;
+7. the fleet path: the batched sequence runner at `OdometryConfig()` with
+   B = 8 lanes of 40 scans (lanes 0 and 7 the bench drive, lanes 1-6 seeds
+   43-48 at 5 m/s with yaw rate 0.03 (b + 1), simulated in six worker
+   processes), one warm-up pass and one timed pass. It fails unless lanes 0
+   and 7 are bitwise equal (poses, final keys, counts, origin), lane 0 is
+   within 1e-5 m / 1e-6 (t / q) of phase 3's trajectory with the same ICP
+   iterations and matches on every scan and the same final keys and
+   counts, lane 0's ATE is within 1e-4 m of 0.00936 m, every lane's ATE is
+   under 0.03 m, no scan diverged, and the launches follow the batched
+   schedule (K1 once per batched round, a step's rounds its slowest lane's;
+   K2 four times that; K3 once per ICP step and once per map_update step).
+   Then each kernel at B = 8 on the inputs of one more batched step: K1
+   and K3's two lookups bitwise against their plain versions, K2 (lane 3
+   inactive) within phase 2's tolerances, and all three bitwise against
+   B = 1 launches lane by lane; per-launch times at B = 8 with their bounds.
+   Last, `fleet --batch 2 --scans 5` in-process (TUMs under
+   chiprun_out/cli_smoke/).
 
-Prints a `kernels` JSON line (each kernel with its launches on the three
-paths, its times, bound and plain time, and `redesigned`: the PR that last
-redesigned it, or null), the card's name and power limit, then as its
-last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+Prints a `kernels` JSON line (each kernel with its launches on every path,
+its times, bound and plain time at the main path's shapes and at B = 8,
+and `redesigned`: the PR that last redesigned it, or null), the card's name
+and power limit, then as its last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Exits non-zero without a result when no CUDA device is present.
 """
 
@@ -435,7 +453,8 @@ def drive_path(name: str, cfg, bench: dict, device, *, ate_gt=None, ate_ref_max=
     every launch count set to 0 just before it and read just after; checks
     accuracy (ATE under 0.03 m; within 1e-4 m of `ate_gt` and under
     `ate_ref_max` against BASELINE_REF.tum where given), divergence and the
-    K1 / K2 schedule. Returns (odometry, launches, iterations per scan)."""
+    K1 / K2 schedule. Returns (odometry, launches, iterations per scan,
+    per-scan diagnostics, ms per scan)."""
     import torch
 
     from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
@@ -490,7 +509,7 @@ def drive_path(name: str, cfg, bench: dict, device, *, ate_gt=None, ate_ref_max=
                              f"{ate_ref_max} m")
     if diverged.any():
         raise AssertionError(f"{name}: {int(diverged.sum())} scans diverged")
-    return odo, launches, iters
+    return odo, launches, iters, diags, ms_per_scan
 
 
 def run_main_path(bench: dict, device):
@@ -507,14 +526,15 @@ def run_main_path(bench: dict, device):
     torch.cuda.synchronize()
     log(f"main path: warm-up pass {time.perf_counter() - t0:.1f} s")
     # the JAX package's figure on this drive, which the port has held: 0.00936 m
-    odo, launches, iters = drive_path("main path", cfg, bench, device, ate_gt=0.00936)
+    odo, launches, iters, diags, ms_per_scan = drive_path("main path", cfg, bench, device,
+                                                          ate_gt=0.00936)
     # K3: the neighbourhood lookup of each ICP scan's one candidate gather,
     # and the group lookup of every scan's map_update
     want = int(np.sum(iters > 0)) + len(iters)
     if launches["search_sorted"] != want:
         raise AssertionError(f"main path: K3 launches {launches['search_sorted']} != ICP "
                              f"scans + map_update calls {want}")
-    return odo, launches
+    return odo, launches, diags, ms_per_scan
 
 
 def run_reference_parity(bench: dict, device):
@@ -522,8 +542,8 @@ def run_reference_parity(bench: dict, device):
 
     cfg = reference_parity(OdometryConfig())
     # the NumPy oracle's own trajectory, which this path reproduces
-    odo, launches, iters = drive_path("reference_parity path", cfg, bench, device,
-                                      ate_ref_max=0.0005)
+    odo, launches, iters, _, _ = drive_path("reference_parity path", cfg, bench, device,
+                                            ate_ref_max=0.0005)
     # K3: one neighbourhood lookup per ICP round (the map re-searched at the
     # round's pose), one per map_update (every scan)
     want = int(iters.sum()) + len(iters)
@@ -785,6 +805,381 @@ def run_cli() -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 7: the fleet path (batched multi-sequence odometry)
+# --------------------------------------------------------------------------
+
+FLEET_B = 8
+
+
+def simulate_lane(b: int) -> dict:
+    """Fleet lane b's drive (seed 42 + b, yaw rate 0.03 (b + 1), 5 m/s) as
+    numpy scans and ground truth relative to its first pose; run in a worker
+    process."""
+    from scipy.spatial.transform import Rotation
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
+
+    drive = simulate_sequence(num_scans=40, width=OdometryConfig().scan_width, seed=42 + b,
+                              speed=5.0, yaw_rate=0.03 * (b + 1))
+    g0 = drive.gt_q[0]
+    gt_rel = Rotation.from_quat([g0[1], g0[2], g0[3], g0[0]]).inv().apply(
+        drive.gt_t - drive.gt_t[0])
+    return dict(scans=drive.scans, gt_rel=gt_rel)
+
+
+def fleet_scans(bench: dict, device):
+    """The fleet's (S, B, ...) scans on the card and each lane's ground truth:
+    lanes 0 and 7 the bench drive, lanes 1-6 their own drives (simulated in
+    six worker processes, all stopped before this returns)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan, scan_from_numpy
+
+    cfg = OdometryConfig()
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=6,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        drives = list(pool.map(simulate_lane, range(1, FLEET_B - 1)))
+    lanes = [bench["scans"]]
+    for d in drives:
+        lanes.append([scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
+                                      cfg.max_raw_points, device) for s in d["scans"]])
+    lanes.append(bench["scans"])
+    n = len(bench["scans"])
+    scans_b = LidarScan(*(torch.stack([torch.stack([getattr(lane[i], f) for lane in lanes])
+                                       for i in range(n)]) for f in LidarScan._fields))
+    log(f"fleet path: simulated and uploaded {FLEET_B - 2} more drives in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return scans_b, [bench["gt_rel"]] + [d["gt_rel"] for d in drives] + [bench["gt_rel"]]
+
+
+def run_fleet(bench: dict, main_diags: list, main_odo, single_ms: float, device) -> dict:
+    """The batched runner at B = 8 on the 40-scan drives: one warm-up pass,
+    one timed pass with the launch counts set to 0 just before it and read
+    just after. Checks lanes 0 and 7 bitwise equal, lane 0 against the main
+    path's single-sequence run, every lane's accuracy, divergence and the
+    kernels' schedule (K1 once per batched round, the slowest lane's; K2
+    four times that; K3 once per ICP step and once per map_update step).
+    Returns the launches, the final state and the scans."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
+    from lidar_odometry_demo_tpu_torch.parallel import batched
+
+    cfg = OdometryConfig()
+    scans_b, gts = fleet_scans(bench, device)
+    S, B = scans_b.xyz.shape[:2]
+    run = batched.make_batched_sequence_runner(cfg)
+    t0 = time.perf_counter()
+    run(batched.init_batched_state(cfg, B, device), scans_b)
+    torch.cuda.synchronize()
+    log(f"fleet path: warm-up pass {time.perf_counter() - t0:.1f} s")
+    state0 = batched.init_batched_state(cfg, B, device)
+    torch.cuda.synchronize()
+    zero_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, diags = run(state0, scans_b)
+    end.record()
+    end.synchronize()
+    launches = read_counts()
+    ms_step = start.elapsed_time(end) / S
+    sps = B * 1e3 / ms_step
+    log(f"fleet path: B={B} lanes x {S} scans, {ms_step:.3f} ms per step of {B}, {sps:.2f} "
+        f"scans/s aggregate, {sps / (1e3 / single_ms):.3f}x the main path's "
+        f"{1e3 / single_ms:.2f} scans/s (CUDA events)")
+
+    t, q = diags.pose.t.cpu().numpy(), diags.pose.q.cpu().numpy()
+    iters = diags.icp_iterations.cpu().numpy()
+    matches = diags.num_matches.cpu().numpy()
+    if t.shape != (S, B, 3) or not np.all(np.isfinite(t)) or not np.all(np.isfinite(q)):
+        raise AssertionError("fleet path: non-finite or misshapen poses")
+    kf = state.keyframe
+    same = [torch.equal(diags.pose.t[:, 0], diags.pose.t[:, 7]),
+            torch.equal(diags.pose.q[:, 0], diags.pose.q[:, 7])]
+    same += [torch.equal(getattr(kf, f)[0], getattr(kf, f)[7]) for f in ("keys", "count", "origin")]
+    if not all(same):
+        raise AssertionError(f"fleet path: lanes 0 and 7 (one drive) differ: poses t, q, keys, "
+                             f"count, origin equal = {same}")
+    st = np.stack([d.pose.t.cpu().numpy() for d in main_diags])
+    sq = np.stack([d.pose.q.cpu().numpy() for d in main_diags])
+    s_iters = np.array([int(d.icp_iterations) for d in main_diags])
+    s_matches = np.array([int(d.num_matches) for d in main_diags])
+    dt, dq = float(np.abs(t[:, 0] - st).max()), float(np.abs(q[:, 0] - sq).max())
+    if dt > 1e-5 or dq > 1e-6:
+        raise AssertionError(f"fleet path: lane 0 is {dt} m / {dq} from the main path")
+    if not (np.array_equal(iters[:, 0], s_iters) and np.array_equal(matches[:, 0], s_matches)):
+        raise AssertionError(f"fleet path: lane 0's ICP iterations or matches differ from the "
+                             f"main path's: {iters[:, 0]} vs {s_iters}, {matches[:, 0]} vs "
+                             f"{s_matches}")
+    if not (torch.equal(kf.keys[0], main_odo.state.keyframe.keys)
+            and torch.equal(kf.count[0], main_odo.state.keyframe.count)):
+        raise AssertionError("fleet path: lane 0's final map keys or counts differ from the "
+                             "main path's")
+    ates = [ate_rmse(t[:, b], gts[b], align=True) for b in range(B)]
+    diverged = int(diags.diverged.sum())
+    rounds = int(iters.max(axis=1).sum())
+    icp_steps = int(np.sum(iters.max(axis=1) > 0))
+    log(f"fleet path: lane 0 within {dt:.3g} m / {dq:.3g} of the main path with equal "
+        f"iterations and matches, lanes 0 and 7 bitwise equal; aligned ATE per lane "
+        f"{[round(a, 5) for a in ates]} m; diverged {diverged}; {rounds} batched rounds over "
+        f"{icp_steps} ICP steps (lane rounds {int(iters.sum())}); launches {launches}")
+    if abs(ates[0] - 0.00936) > 1e-4:
+        raise AssertionError(f"fleet path: lane 0's ATE {ates[0]:.5f} m is not within 1e-4 m "
+                             f"of 0.00936 m")
+    if max(ates) > 0.03:
+        raise AssertionError(f"fleet path: a lane's ATE exceeds 0.03 m: {ates}")
+    if diverged:
+        raise AssertionError(f"fleet path: {diverged} lane scans diverged")
+    want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
+            "search_sorted": icp_steps + S}
+    if launches != want:
+        raise AssertionError(f"fleet path: launches {launches} != the schedule {want}")
+    return dict(launches=launches, state=state, scans=scans_b, ms_per_step=ms_step,
+                scans_per_sec=sps, ates=ates)
+
+
+def fleet_calls(state, scan) -> dict:
+    """The kernels' first calls in one more batched step from the fleet's
+    final state, with their inputs (cloned: the step rewrites its buffers):
+    {"K1": (args, kwargs), "K2": (args, kwargs), "neighbourhood": ...,
+    "group": ...}. Their launches are not counted: counts are zeroed before
+    every drive."""
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.ops import icp
+    from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
+    from lidar_odometry_demo_tpu_torch.parallel import batched
+
+    calls = {}
+    patched = [(vm, "match_correspondences", "K1"), (icp, "gn_step", "K2"),
+               (vm, "neighborhood_lookup", "neighbourhood"), (vm, "group_lookup", "group")]
+    originals = {key: getattr(mod, name) for mod, name, key in patched}
+
+    def clone(x):
+        if hasattr(x, "clone"):
+            return x.clone()
+        if isinstance(x, tuple):
+            return type(x)(*(clone(v) for v in x)) if hasattr(x, "_fields") else tuple(
+                clone(v) for v in x)
+        return x
+
+    def recorder(key):
+        def call(*args, **kwargs):
+            if key not in calls:
+                calls[key] = (clone(args), {k: clone(v) for k, v in kwargs.items()
+                                            if k not in ("out", "work", "slot")})
+            return originals[key](*args, **kwargs)
+        return call
+
+    for mod, name, key in patched:
+        setattr(mod, name, recorder(key))
+    try:
+        batched.make_batched_step(OdometryConfig())(state, scan)
+    finally:
+        for mod, name, key in patched:
+            setattr(mod, name, originals[key])
+    if set(calls) != {key for _, _, key in patched}:
+        raise AssertionError(f"fleet step: recorded only {sorted(calls)}")
+    return calls
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(_bitwise(x, y) for x, y in zip(a, b))
+
+
+def _lane(x, b):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x[b]
+    if isinstance(x, tuple):
+        items = [_lane(v, b) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def check_fleet_kernels(calls: dict, device) -> dict:
+    """Each kernel at B = 8 on the fleet step's inputs against its plain
+    version (K1, K3 bitwise; K2 within phase 2's tolerances) and against B = 1
+    launches lane by lane (bitwise); K2 with lane 3 inactive. Per-launch CUDA
+    event times at B = 8 with their bounds. Returns {kernel name: numbers}."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.kernels.correspondence import (
+        Match, match_correspondences, match_correspondences_plain)
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import GnWork, gn_step, gn_step_plain
+    from lidar_odometry_demo_tpu_torch.kernels.search import (
+        CandidateSet, group_lookup, group_lookup_plain, neighborhood_lookup,
+        neighborhood_lookup_plain, search_steps)
+
+    cfg = OdometryConfig()
+    out = {}
+
+    # K1, pose mode
+    args, kw = calls["K1"]
+    query, qvalid, pose_t, pose_R, cand, tab, nrm = args
+    B, Q = query.shape[:2]
+    K = kw["max_points"]
+    got = match_correspondences(*args, **kw)
+    ref = match_correspondences_plain(*args[:5], nrm, **kw)
+    torch.cuda.synchronize()
+    if not _bitwise(got, ref):
+        raise AssertionError("fleet K1 at B=8: differs from its plain version")
+    for b in range(B):
+        if not _bitwise(_lane(got, b), match_correspondences(*(_lane(a, b) for a in args), **kw)):
+            raise AssertionError(f"fleet K1: lane {b} differs from its B=1 launch")
+    match_out = Match.empty(Q, device, (B,))
+    ms = time_ms(lambda: match_correspondences(*args, **kw, out=match_out), 100)
+    plain_ms = time_ms(lambda: match_correspondences_plain(*args[:5], nrm, **kw), 3)
+    RW = cand.rows_z[0].shape[-1]
+    npres = cand.n_present.cpu().numpy()                        # (B, 9, Q)
+    present = np.arange(3)[:, None, None, None] < npres[None]   # (3, B, 9, Q)
+    cnt = np.stack([r.view(torch.float32)[..., 3 * K].reshape(B, 9, Q).cpu().numpy()
+                    for r in cand.rows_z])
+    n_cand = float(np.sum(np.where(present, np.clip(np.ceil(cnt), 0, K), 0)))
+    n_valid = int(ref.valid.sum())
+    n_bytes = (4.0 * (np.sum(present) + 3 * n_cand)
+               + B * (Q * 13 + 48 + 2 * 9 * Q * 4 + Q * 33) + 12 * n_valid)
+    b_ms, b_by = bound_ms(n_bytes, 9 * n_cand + 15 * Q * B)
+    out["match_rows"] = dict(fleet_ms=ms, fleet_plain_ms=plain_ms, fleet_bound_ms=b_ms,
+                             fleet_bound_by=b_by)
+    log(f"fleet kernel match_rows (K1) at B={B}: Q={Q} K={K}, {n_valid} valid; bitwise its "
+        f"plain version and its B=1 launches; {ms:.4f} ms per launch, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+
+    # K2, one whole Gauss-Newton step with lane 3 inactive
+    args, kw = calls["K2"]
+    corr, pose, guess_t, _ = args
+    active = torch.ones(B, dtype=torch.bool, device=device)
+    active[3] = False
+    norm_in = torch.linspace(0.1, 0.8, B, device=device)
+    work = GnWork.empty(1, device, (B,))
+    new, norm, H, bvec = gn_step(corr, pose, guess_t, cfg, work=work, step_norm=norm_in,
+                                 active=active)
+    snap = [x.clone() for x in (new.t, new.q, norm, H, bvec)]
+    plain = gn_step_plain(corr, pose, guess_t, cfg, step_norm=norm_in, active=active)
+    torch.cuda.synchronize()
+    if not (torch.equal(snap[0][3], pose.t[3]) and torch.equal(snap[1][3], pose.q[3])
+            and torch.equal(snap[2][3], norm_in[3])):
+        raise AssertionError("fleet K2: the inactive lane's pose or step norm moved")
+    errs = [(snap[0] - plain[0].t).abs().max().item(), (snap[1] - plain[0].q).abs().max().item()]
+    on = active.cpu().numpy()
+    hb_err = max((snap[3][active] - plain[2][active]).abs().max().item(),
+                 (snap[4][active] - plain[3][active]).abs().max().item())
+    if max(errs) > 1e-6 or not (
+            torch.allclose(snap[3][active], plain[2][active], rtol=2e-5, atol=1e-4)
+            and torch.allclose(snap[4][active], plain[3][active], rtol=2e-5, atol=1e-4)):
+        raise AssertionError(f"fleet K2: pose {errs}, H/b {hb_err} from its plain version")
+    for b in range(B):
+        if not on[b]:
+            continue
+        one = gn_step(_lane(corr, b), _lane(pose, b), guess_t[b], cfg)
+        if not _bitwise([x[b] for x in snap], [one[0].t, one[0].q, one[1], one[2], one[3]]):
+            raise AssertionError(f"fleet K2: lane {b} differs from its B=1 launch")
+    ms = time_ms(lambda: gn_step(corr, pose, guess_t, cfg, work=work, step_norm=norm_in,
+                                 active=active), 200)
+    all_on = time_ms(lambda: gn_step(corr, pose, guess_t, cfg, work=work), 200)
+    plain_ms = time_ms(lambda: gn_step_plain(corr, pose, guess_t, cfg), 3)
+    Qk = corr.source_local.shape[1]
+    b_ms, b_by = bound_ms(B * (Qk * 37 + 40 + 42 * 4 + 32), B * (100 * Qk + 300))
+    out["jtwj_accumulate"] = dict(fleet_ms=all_on, fleet_ms_one_inactive=ms,
+                                  fleet_plain_ms=plain_ms, fleet_bound_ms=b_ms,
+                                  fleet_bound_by=b_by, fleet_pose_max_abs_err=max(errs))
+    log(f"fleet kernel jtwj_accumulate (K2) at B={B}: Q={Qk}; lane 3 inactive held, the others "
+        f"bitwise their B=1 launches, pose {max(errs):.3g} from the plain step; {all_on:.4f} ms "
+        f"per launch ({ms:.4f} with lane 3 inactive), plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by})")
+
+    # K3: the neighbourhood lookup and the group lookup
+    args, kw = calls["neighbourhood"]
+    got = neighborhood_lookup(*args, **kw)
+    ref = neighborhood_lookup_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for b in range(B):
+        g, r = _lane(got, b), _lane(ref, b)
+        one = neighborhood_lookup(*(_lane(a, b) for a in args), **kw)
+        for other, label in ((r, "plain version"), (one, "B=1 launch")):
+            live = other.n_present.reshape(-1)
+            same = (torch.equal(g.base, other.base) and torch.equal(g.n_present, other.n_present)
+                    and all(torch.equal(g.rows_z[s][live > s], other.rows_z[s][live > s])
+                            for s in range(3)))
+            if not same:
+                raise AssertionError(f"fleet K3 neighbourhood lookup: lane {b} differs from its "
+                                     f"{label}")
+    tab, keys = args[0], args[1]
+    C, Qn = keys.shape[1], args[3].shape[1]
+    RW = kw["row_width"]
+    present = int(ref.n_present.sum())
+    cand_out = CandidateSet.empty(Qn, RW, device, (B,))
+    n_ms = time_ms(lambda: neighborhood_lookup(*args, **kw, out=cand_out), 200)
+    n_plain = time_ms(lambda: neighborhood_lookup_plain(*args, **kw), 3)
+    steps = search_steps(C)
+    nb_ms, nb_by = bound_ms(B * (13.0 * Qn + 60 + 4.0 * C + 8.0 * 9 * Qn)
+                            + 2.0 * 4 * RW * present, B * 9.0 * Qn * (24 + steps))
+    gkeys, gq = calls["group"][0]
+    pos_c, found = group_lookup(gkeys, gq)
+    ref_g = group_lookup_plain(gkeys, gq)
+    torch.cuda.synchronize()
+    if not (torch.equal(pos_c, ref_g[0]) and torch.equal(found, ref_g[1])):
+        raise AssertionError("fleet K3 group lookup: differs from its plain version")
+    for b in range(B):
+        p1, f1 = group_lookup(gkeys[b], gq[b])
+        if not (torch.equal(pos_c[b], p1) and torch.equal(found[b], f1)):
+            raise AssertionError(f"fleet K3 group lookup: lane {b} differs from its B=1 launch")
+    N = gq.shape[1]
+    g_ms = time_ms(lambda: group_lookup(gkeys, gq), 200)
+    g_plain = time_ms(lambda: group_lookup_plain(gkeys, gq), 3)
+    gb_ms, gb_by = bound_ms(B * (4.0 * C + 9.0 * N), float(B * N * (steps + 2)))
+    out["search_sorted"] = dict(fleet_ms=n_ms, fleet_plain_ms=n_plain, fleet_bound_ms=nb_ms,
+                                fleet_bound_by=nb_by, fleet_present_slices=present,
+                                fleet_group_ms=g_ms, fleet_group_plain_ms=g_plain,
+                                fleet_group_bound_ms=gb_ms)
+    log(f"fleet kernel search_sorted (K3) at B={B}: neighbourhood lookup Q={Qn} C={C}, "
+        f"{present} present slices, and group lookup N={N} ({int(found.sum())} found): bitwise "
+        f"their plain versions and B=1 launches; neighbourhood {n_ms:.4f} ms per launch, plain "
+        f"{n_plain:.4f} ms, bound {nb_ms:.4f} ms ({nb_by}); group {g_ms:.4f} ms, plain "
+        f"{g_plain:.4f} ms, bound {gb_ms:.5f} ms ({gb_by})")
+    return out
+
+
+def run_fleet_cli() -> dict:
+    """`fleet --batch 2 --scans 5` in-process, TUMs under chiprun_out/cli_smoke/."""
+    from lidar_odometry_demo_tpu_torch import cli
+    from lidar_odometry_demo_tpu_torch.io.trajectory import read_tum
+
+    prefix = os.path.join(REPO, "chiprun_out", "cli_smoke", "fleet_")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    for b in range(2):
+        if os.path.exists(f"{prefix}{b}.tum"):
+            os.remove(f"{prefix}{b}.tum")
+    zero_counts()
+    t0 = time.perf_counter()
+    cli.main(["fleet", "--batch", "2", "--scans", "5", "--out-prefix", prefix])
+    launches = read_counts()
+    for b in range(2):
+        stamps, t, _ = read_tum(f"{prefix}{b}.tum")
+        if t.shape != (5, 3) or not np.all(np.isfinite(t)) or not np.all(np.diff(stamps) > 0):
+            raise AssertionError(f"cli fleet: lane {b}'s TUM must hold 5 monotone rows")
+    log(f"cli: fleet --batch 2 --scans 5 in {time.perf_counter() - t0:.1f} s, two TUMs of 5 "
+        f"rows, launches {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"cli fleet: a kernel was not launched: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -807,15 +1202,22 @@ def main() -> int:
     rng = np.random.default_rng(1234)
     kernels = [check_match_rows(rng, device), check_jtwj(rng, device)]
     bench = bench_drive(device)
-    odo, launches = run_main_path(bench, device)
+    odo, launches, main_diags, single_ms = run_main_path(bench, device)
     kernels.append(check_search(device, path_lookups(odo, bench["scans"][-1])))
     parity_odo, parity = run_reference_parity(bench, device)
     check_lookups("reference_parity path's map", path_lookups(parity_odo, bench["scans"][-1]))
     cli_launches = run_cli()
+    fleet = run_fleet(bench, main_diags, odo, single_ms, device)
+    last = type(fleet["scans"])(*(x[-1] for x in fleet["scans"]))
+    fleet_numbers = check_fleet_kernels(fleet_calls(fleet["state"], last), device)
+    cli_fleet = run_fleet_cli()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_reference_parity"] = parity[k["name"]]
         k["launches_cli"] = cli_launches[k["name"]]
+        k["launches_fleet"] = fleet["launches"][k["name"]]
+        k["launches_cli_fleet"] = cli_fleet[k["name"]]
+        k.update(fleet_numbers[k["name"]])
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)

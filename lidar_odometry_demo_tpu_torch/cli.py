@@ -8,6 +8,7 @@ analogue, lidar_odometry.cpp:75), including ``map_saturated``:
 
   python -m lidar_odometry_demo_tpu_torch.cli sim --scans 100 --out traj.tum
   python -m lidar_odometry_demo_tpu_torch.cli pcd-dir /path/to/scans --out traj.tum
+  python -m lidar_odometry_demo_tpu_torch.cli fleet --batch 8 --scans 40
   python -m lidar_odometry_demo_tpu_torch.cli sim --device cpu --scans 5
 
 Runs on the card ("cuda") unless --device names another device.
@@ -128,6 +129,67 @@ def cmd_pcd_dir(args):
                 keyframe_out=args.keyframe_out, quiet=args.quiet)
 
 
+def cmd_fleet(args):
+    """Batched multi-sequence odometry: B simulated drives (seed + b, yaw
+    rate 0.03 (b + 1)) stepped together on one device, one TUM per lane
+    (the JAX CLI's `fleet`, the production serving shape, on one card)."""
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from lidar_odometry_demo_tpu_torch.device import resolve_device
+    from lidar_odometry_demo_tpu_torch.io import trajectory
+    from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan, scan_from_numpy
+    from lidar_odometry_demo_tpu_torch.parallel import batched
+
+    dp = 1 if args.dp is None else args.dp
+    if dp > 1 or args.sp > 1:
+        raise SystemExit(f"fleet: --dp {dp} --sp {args.sp} needs the sharded modes (a dp x sp "
+                         f"device mesh), which this port does not have yet; it runs dp=1 x "
+                         f"sp=1 on one device")
+    cfg = _load_config(args)
+    dev = resolve_device(args.device)
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    print(f"mesh: dp={dp} x sp={args.sp} over {n_dev} devices", file=sys.stderr)
+
+    drives = [
+        simulate_sequence(num_scans=args.scans, width=cfg.scan_width, seed=args.seed + b,
+                          speed=args.speed, yaw_rate=0.03 * (b + 1))
+        for b in range(args.batch)
+    ]
+    # (S, B, ...) scans on the device, as the JAX runner takes them
+    lanes = [[scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
+                              cfg.max_raw_points, dev) for s in d.scans] for d in drives]
+    scans_b = LidarScan(*(
+        torch.stack([torch.stack([getattr(lane[i], f) for lane in lanes])
+                     for i in range(args.scans)]) for f in LidarScan._fields))
+    state_b = batched.init_batched_state(cfg, args.batch, dev)
+    run = batched.make_batched_sequence_runner(cfg)
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, diags = run(state_b, scans_b)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    total = args.scans * args.batch
+    print(f"fleet: {args.batch} sequences x {args.scans} scans in {dt:.1f}s "
+          f"= {total / dt:.1f} scans/s", file=sys.stderr)
+
+    t_all, q_all = diags.pose.t.cpu().numpy(), diags.pose.q.cpu().numpy()
+    for b in range(args.batch):
+        out = f"{args.out_prefix}{b}.tum"
+        t_b, q_b = t_all[:, b], q_all[:, b]
+        trajectory.write_tum(out, [i * 0.1 for i in range(args.scans)], t_b, q_b)
+        g0 = Rotation.from_quat([
+            drives[b].gt_q[0][1], drives[b].gt_q[0][2], drives[b].gt_q[0][3], drives[b].gt_q[0][0]
+        ])
+        gt_rel = g0.inv().apply(drives[b].gt_t - drives[b].gt_t[0])
+        ate = trajectory.ate_rmse(t_b, gt_rel, align=True)
+        print(f"  lane {b}: {out}  aligned ATE {ate:.3f} m")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="lidar_odometry_demo_tpu_torch")
     p.add_argument("--config", help="YAML config overriding OdometryConfig fields")
@@ -148,6 +210,20 @@ def main(argv=None):
         sp.add_argument("--out", default="trajectory.tum")
         sp.add_argument("--keyframe-out")
         sp.add_argument("--quiet", action="store_true")
+
+    pf = sub.add_parser("fleet", help="batched multi-sequence odometry on one device")
+    pf.add_argument("--batch", type=int, default=4)
+    pf.add_argument("--scans", type=int, default=20)
+    pf.add_argument("--seed", type=int, default=0)
+    pf.add_argument("--speed", type=float, default=3.0)
+    pf.add_argument("--dp", type=int, default=None,
+                    help="sequences' device axis; only 1 (the sharded modes are not ported)")
+    pf.add_argument("--sp", type=int, default=1,
+                    help="ICP's device axis; only 1 (the sharded modes are not ported)")
+    pf.add_argument("--out-prefix", default="fleet_")
+    pf.set_defaults(fn=cmd_fleet)
+
+    for sp in (ps, pp, pf):
         sp.add_argument("--device", default="cuda",
                         help='torch device to run on (default "cuda"; "cpu" on request)')
 

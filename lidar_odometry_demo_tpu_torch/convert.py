@@ -4,7 +4,9 @@ The system has no weights; its state is `OdometryState`: a `VoxelMap` in
 format v6 (tab (C, W) int32, keys (C,), count (C,), origin (3,), kdim
 (1, K)) and two poses. Both frameworks keep the same format and the same
 field names, so a state moves across leaf for leaf and compares slot by
-slot.
+slot. A batched state (parallel/batched.py, the JAX `init_batched_state`
+and batched runners) keeps its leading lane axis on every leaf and moves
+the same way.
 """
 
 from __future__ import annotations

@@ -18,6 +18,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 SOURCES = {"match_rows": "match_rows.cu", "jtwj": "jtwj.cu", "search": "search.cu"}
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -91,16 +93,69 @@ def build_log(name: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
-def check_tensor(t, name: str, dtype, shape: tuple) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def lanes(shape_lead) -> int:
+    """The lane count B of a kernel call: its arguments' leading dims, ()
+    for one sequence (B = 1) or (B,) for B sequences."""
+    lead = tuple(shape_lead)
+    if len(lead) > 1:
+        raise ValueError(f"at most one lane axis, got leading dims {lead}")
+    return lead[0] if lead else 1
+
+
+def _at_lane(x, b: int):
+    if isinstance(x, torch.Tensor):
+        return x[b]
+    if isinstance(x, tuple):
+        items = [_at_lane(v, b) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _stack_lanes(xs):
+    x0 = xs[0]
+    if x0 is None:
+        return None
+    if isinstance(x0, torch.Tensor):
+        return torch.stack(xs)
+    items = [_stack_lanes([x[i] for x in xs]) for i in range(len(x0))]
+    return type(x0)(*items) if hasattr(x0, "_fields") else tuple(items)
+
+
+def lane_map(fn, batch: int, *args, **kwargs):
+    """fn over the lanes of its tensor arguments, stacked: a kernel's plain
+    version at B lanes as B calls of its B = 1 version. Every tensor in
+    `args` (also inside tuples and named tuples) carries the leading lane
+    axis; `kwargs` pass unchanged."""
+    return _stack_lanes([fn(*(_at_lane(a, b) for a in args), **kwargs)
+                         for b in range(batch)])
+
+
+def check_tensors(*specs) -> None:
+    """Raise unless every spec (tensor, name, dtype, shape[, strided_lanes])
+    holds a contiguous CUDA tensor of that dtype and shape. Every shape
+    (with its lane count) is checked first, then every dtype, device and
+    layout. strided_lanes: that many leading (lane) dims may sit at any
+    stride (a view into a larger buffer, read at its lane stride); each
+    lane's own elements must still be contiguous."""
+    for t, name, _, shape, *_ in specs:
+        if t.shape != shape:
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    for t, name, dtype, *_ in specs:
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    for t, name, *_ in specs:
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    for t, name, _, _, *strided in specs:
+        if not (strided and strided[0]):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+            continue
+        step = 1  # each lane's own elements, innermost first
+        for size, stride in reversed(list(zip(t.shape[strided[0]:], t.stride()[strided[0]:]))):
+            if size != 1 and stride != step:
+                raise ValueError(f"{name} must be contiguous")
+            step *= size
 
 
 def c_function(lib: str, name: str, argtypes: list):
@@ -116,8 +171,6 @@ def c_function(lib: str, name: str, argtypes: list):
 def launch(fn, device, *args) -> None:
     """Call launcher `fn` on `device`'s current stream (appended as the last
     argument) and raise on a non-zero cudaError_t."""
-    import torch
-
     if len(args) + 1 != len(fn.argtypes):  # ctypes would pass extras as C ints
         raise TypeError(f"{fn.__name__}: {len(args) + 1} arguments for "
                         f"{len(fn.argtypes)} declared types")

@@ -16,6 +16,10 @@ main path) and `match_rows` (winner point, index and d2 of given world
 points). Both count their launches in `match_rows.launches`. On CPU tensors
 each runs its plain version; on CUDA tensors it launches the kernel or
 raises. There is no fallback between the two.
+
+Lanes: every argument may carry a leading lane axis B (independent
+sequences, each with its own map and pose); one launch serves all lanes,
+and the plain version runs its B = 1 body per lane.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from lidar_odometry_demo_tpu_torch.kernels import _build
-from lidar_odometry_demo_tpu_torch.kernels._build import check_tensor
+from lidar_odometry_demo_tpu_torch.kernels._build import check_tensors, lane_map, lanes
 from lidar_odometry_demo_tpu_torch.ops.se3 import rot_pts
 
 
@@ -40,12 +44,13 @@ class Match(NamedTuple):
     d2: torch.Tensor            # (Q,) winning d2; max_d2 without a candidate
 
     @staticmethod
-    def empty(Q: int, device) -> "Match":
+    def empty(Q: int, device, lead: tuple = ()) -> "Match":
+        """Outputs for Q queries of each of the lanes `lead` (() or (B,))."""
         f32 = dict(dtype=torch.float32, device=device)
-        return Match(torch.empty((Q, 3), **f32), torch.empty((Q, 3), **f32),
-                     torch.empty((Q,), dtype=torch.bool, device=device),
-                     torch.empty((Q,), dtype=torch.int32, device=device),
-                     torch.empty((Q,), **f32))
+        return Match(torch.empty((*lead, Q, 3), **f32), torch.empty((*lead, Q, 3), **f32),
+                     torch.empty((*lead, Q), dtype=torch.bool, device=device),
+                     torch.empty((*lead, Q), dtype=torch.int32, device=device),
+                     torch.empty((*lead, Q), **f32))
 
 
 def match_rows_plain(q_world: torch.Tensor, rows_z, n_present: torch.Tensor, *,
@@ -56,7 +61,11 @@ def match_rows_plain(q_world: torch.Tensor, rows_z, n_present: torch.Tensor, *,
     z-slice the gated min over the K lanes and its first k, then the
     earliest z-slice and column with a strict <. An invalid query sits at
     exactly max_d2 with index 0 (its point is candidate 0 of column 0).
+    With a lane axis, the B = 1 version per lane.
     """
+    if q_world.dim() == 3:
+        return lane_map(match_rows_plain, q_world.shape[0], q_world, rows_z, n_present,
+                        max_d2=max_d2, max_points=max_points)
     K = max_points
     Q = q_world.shape[0]
     dev = q_world.device
@@ -105,7 +114,11 @@ def match_correspondences_plain(query_local, query_valid, pose_t, pose_R, cand,
     """K1 in pose mode as tensor ops: the port's ``match_candidates`` body
     (q_world, match_rows_plain, the winner's normal from the map's (C, K, 3)
     normal view `nrm_view` at slot clamp(base[c] + z, C-1), the valid mask
-    and the zeroed outputs)."""
+    and the zeroed outputs). With a lane axis, the B = 1 version per lane."""
+    if query_local.dim() == 3:
+        return lane_map(match_correspondences_plain, query_local.shape[0], query_local,
+                        query_valid, pose_t, pose_R, cand, nrm_view, max_d2=max_d2,
+                        max_points=max_points)
     K = max_points
     C = nrm_view.shape[0]
     q_world = rot_pts(query_local, pose_R) + pose_t
@@ -124,31 +137,30 @@ def match_correspondences_plain(query_local, query_valid, pose_t, pose_R, cand,
                  valid, loc, best_d2)
 
 
-def _check_rows(rows_z, n_present, Q: int, K: int) -> int:
+def _row_specs(rows_z, n_present, lead: tuple, Q: int, K: int):
+    """(RW, the candidate rows' and n_present's check specs)."""
     RW = rows_z[0].shape[-1]
     if RW < 3 * K + 1:
         raise ValueError(f"rows of width {RW} cannot hold K={K} candidates")
-    for s, r in enumerate(rows_z):
-        check_tensor(r, f"rows_z[{s}]", torch.int32, (9 * Q, RW))
-    check_tensor(n_present, "n_present", torch.int32, (9, Q))
-    return RW
+    specs = [(r, f"rows_z[{s}]", torch.int32, (*lead, 9 * Q, RW)) for s, r in enumerate(rows_z)]
+    return RW, specs + [(n_present, "n_present", torch.int32, (*lead, 9, Q))]
 
 
-def _launch(dev, query, query_valid, R, t, rows_z, n_present, base, tab, Q, K, RW,
+def _launch(dev, query, query_valid, R, t, rows_z, n_present, base, tab, B, Q, K, RW,
             max_d2, out: Match, with_normal: bool) -> None:
-    if Q == 0:  # nothing to launch
+    if Q == 0 or B == 0:  # nothing to launch
         return
     fn = _build.c_function("match_rows", "match_launch",
-                           [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                           [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
                            + [ctypes.c_void_p] * 6)
-    C, W = (tab.shape[0], tab.shape[1]) if tab is not None else (0, 0)
+    C, W = (tab.shape[-2], tab.shape[-1]) if tab is not None else (0, 0)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     _build.launch(fn, dev, query.data_ptr(), ptr(query_valid), ptr(R), ptr(t),
                   rows_z[0].data_ptr(), rows_z[1].data_ptr(), rows_z[2].data_ptr(),
-                  n_present.data_ptr(), ptr(base), ptr(tab), Q, K, RW, C, W,
+                  n_present.data_ptr(), ptr(base), ptr(tab), B, Q, K, RW, C, W,
                   float(max_d2), out.plane_origin.data_ptr(),
                   out.plane_normal.data_ptr() if with_normal else None,
                   out.valid.data_ptr() if with_normal else None,
@@ -166,26 +178,31 @@ def match_correspondences(query_local, query_valid, pose_t, pose_R, cand, tab, n
     pose_R (3, 3) float32; cand a CandidateSet (rows_z three (9*Q, RW) int32
     candidate-row arrays, n_present and base (9, Q) int32); tab (C, W)
     int32, the map's rows, and nrm_view its (C, K, 3) float32 normal view
-    (the plain version reads the view, the kernel the table). On CUDA the
-    outputs are written into `out`, allocated if None.
+    (the plain version reads the view, the kernel the table). Each may carry
+    a leading lane axis B, all the same. On CUDA the outputs are written
+    into `out`, allocated if None.
     """
     if query_local.device.type == "cpu":
         return match_correspondences_plain(query_local, query_valid, pose_t, pose_R, cand,
                                            nrm_view, max_d2=max_d2, max_points=max_points)
-    Q, K = query_local.shape[0], max_points
+    lead = tuple(query_local.shape[:-2])
+    B, Q, K = lanes(lead), query_local.shape[-2], max_points
     rows_z, n_present, base = cand.rows_z, cand.n_present, cand.base
-    RW = _check_rows(rows_z, n_present, Q, K)
-    check_tensor(query_local, "query_local", torch.float32, (Q, 3))
-    check_tensor(query_valid, "query_valid", torch.bool, (Q,))
-    check_tensor(pose_t, "pose_t", torch.float32, (3,))
-    check_tensor(pose_R, "pose_R", torch.float32, (3, 3))
-    check_tensor(base, "base", torch.int32, (9, Q))
-    check_tensor(tab, "tab", torch.int32, (tab.shape[0], tab.shape[1]))
-    if tab.shape[1] < RW + 3 * K:
-        raise ValueError(f"table rows of width {tab.shape[1]} hold no normal lanes")
-    out = Match.empty(Q, query_local.device) if out is None else out
+    RW, specs = _row_specs(rows_z, n_present, lead, Q, K)
+    out = Match.empty(Q, query_local.device, lead) if out is None else out
+    check_tensors(
+        *specs, (query_local, "query_local", torch.float32, (*lead, Q, 3)),
+        (query_valid, "query_valid", torch.bool, (*lead, Q)),
+        (pose_t, "pose_t", torch.float32, (*lead, 3)),
+        (pose_R, "pose_R", torch.float32, (*lead, 3, 3)),
+        (base, "base", torch.int32, (*lead, 9, Q)),
+        (tab, "tab", torch.int32, (*lead, *tab.shape[-2:])),
+        *((x, f"out.{f}", x.dtype, (*lead, Q, *x.shape[len(lead) + 1:]))
+          for f, x in zip(Match._fields, out)))
+    if tab.shape[-1] < RW + 3 * K:
+        raise ValueError(f"table rows of width {tab.shape[-1]} hold no normal lanes")
     _launch(query_local.device, query_local, query_valid, pose_R, pose_t, rows_z,
-            n_present, base, tab, Q, K, RW, max_d2, out, with_normal=True)
+            n_present, base, tab, B, Q, K, RW, max_d2, out, with_normal=True)
     return out
 
 
@@ -195,23 +212,21 @@ def match_rows(q_world: torch.Tensor, rows_z, n_present: torch.Tensor, *,
     on CUDA ones.
 
     q_world (Q, 3) float32; rows_z three (9*Q, RW) int32 candidate-row
-    arrays; n_present (9, Q) int32. Returns (point (Q, 3) float32,
-    index (Q,) int32, d2 (Q,) float32). The kernel gives 0 as the point of
-    a query without a valid candidate (the plain version candidate 0 of
-    column 0): compare points where d2 < max_d2.
+    arrays; n_present (9, Q) int32; each may carry a leading lane axis B.
+    Returns (point (Q, 3) float32, index (Q,) int32, d2 (Q,) float32). The
+    kernel gives 0 as the point of a query without a valid candidate (the
+    plain version candidate 0 of column 0): compare points where d2 < max_d2.
     """
     if q_world.device.type == "cpu":
         return match_rows_plain(q_world, rows_z, n_present, max_d2=max_d2,
                                 max_points=max_points)
-    Q, K = q_world.shape[0], max_points
-    RW = _check_rows(rows_z, n_present, Q, K)
-    check_tensor(q_world, "q_world", torch.float32, (Q, 3))
-    dev = q_world.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = Match(torch.empty((Q, 3), **f32), None, None,
-                torch.empty((Q,), dtype=torch.int32, device=dev), torch.empty((Q,), **f32))
-    _launch(dev, q_world, None, None, None, rows_z, n_present, None, None, Q, K, RW,
-            max_d2, out, with_normal=False)
+    lead = tuple(q_world.shape[:-2])
+    B, Q, K = lanes(lead), q_world.shape[-2], max_points
+    RW, specs = _row_specs(rows_z, n_present, lead, Q, K)
+    check_tensors(*specs, (q_world, "q_world", torch.float32, (*lead, Q, 3)))
+    out = Match.empty(Q, q_world.device, lead)._replace(plane_normal=None, valid=None)
+    _launch(q_world.device, q_world, None, None, None, rows_z, n_present, None, None, B, Q,
+            K, RW, max_d2, out, with_normal=False)
     return out.plane_origin, out.index, out.d2
 
 

@@ -41,6 +41,15 @@
 // multiply, add and divide there is a non-contracted IEEE operation in the
 // plain version's order (sinf / cosf / sqrtf, not the fast intrinsics).
 // H and b are written as the sums, before the prior and the damping.
+//
+// Lanes: B independent systems in one launch, one 16-block cluster each
+// (grid 16 B, cluster dims (16, 1, 1)); cluster c serves lane c. Every input
+// and output gains a leading B, and each lane's sums keep their rank order,
+// so a lane's result is bitwise the B = 1 launch's on its inputs. In step
+// mode a (B,) `active` flag may be given: the blocks of an inactive lane
+// copy its input pose and step norm to its output slot and return before
+// any barrier (H and b are not written), so the ICP loop needs no tensor op
+// between its steps to hold a finished lane still.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -230,13 +239,45 @@ gn_step_kernel(const float* __restrict__ source_local,
                const float* __restrict__ plane_origin,
                const float* __restrict__ plane_normal,
                const unsigned char* __restrict__ valid, const float* R_in,
-               const float* t_in, const float* q_in, const float* guess_t, int Q,
-               float huber_delta, float prior_w, float damping,
-               float* __restrict__ H_out, float* __restrict__ b_out, float* pose_out) {
+               const float* t_in, int t_stride, const float* q_in, int q_stride,
+               const float* norm_in, int norm_stride, const unsigned char* active,
+               const float* guess_t, int Q, float huber_delta, float prior_w,
+               float damping, float* __restrict__ H_out, float* __restrict__ b_out,
+               float* pose_out) {
   __shared__ float warp_sums[kWarps][kSums];
   __shared__ float partials[kBlocks][kSums];  // rank 0's: every block's sums
   __shared__ float sums[kSums];
   cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  {  // this cluster's lane: every pointer moves to its slice
+    const long long lane = blockIdx.x / kBlocks;
+    source_local += lane * 3 * Q;
+    plane_origin += lane * 3 * Q;
+    plane_normal += lane * 3 * Q;
+    valid += lane * Q;
+    if (R_in != nullptr) R_in += lane * 9;
+    t_in += lane * t_stride;
+    if (q_in != nullptr) q_in += lane * q_stride;
+    if (guess_t != nullptr) guess_t += lane * 3;
+    H_out += lane * 36;
+    b_out += lane * 6;
+    if (pose_out != nullptr) pose_out += lane * 8;
+    if (active != nullptr && active[lane] == 0) {
+      // a finished lane: its pose and step norm stay as they are. The whole
+      // cluster leaves here, before the barrier's first phase.
+      if (rank == 0 && threadIdx.x == 0) {
+        float keep[8];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) keep[i] = t_in[i];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) keep[3 + i] = q_in[i];
+        keep[7] = norm_in[lane * norm_stride];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) pose_out[i] = keep[i];
+      }
+      return;
+    }
+  }
   // the cluster barrier's first phase: once it completes every block has
   // started, so distributed shared memory may be written; its wait comes
   // after the rows, which hides its latency
@@ -245,7 +286,7 @@ gn_step_kernel(const float* __restrict__ source_local,
   // every input that does not depend on another, loaded at once: the pose,
   // the guess and the thread's first two rows
   const int stride = kBlocks * kThreads;
-  const int i0 = blockIdx.x * kThreads + threadIdx.x;
+  const int i0 = (int)rank * kThreads + threadIdx.x;
   Row rows[2];
 #pragma unroll
   for (int u = 0; u < 2; ++u)
@@ -297,7 +338,6 @@ gn_step_kernel(const float* __restrict__ source_local,
   // each block stores its sums into rank 0's shared memory (distributed
   // shared memory) and arrives with release; the others are then done, and
   // rank 0 waits, then sums the blocks in rank order
-  const unsigned rank = cluster.block_rank();
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   if (threadIdx.x < kSums) {
     float s = 0.f;
@@ -339,18 +379,24 @@ gn_step_kernel(const float* __restrict__ source_local,
 
 }  // namespace
 
-// One launch. Step mode: R = nullptr, q and guess_t given, pose_out the 8
-// floats (t, q, |delta|) of the new pose. Normal-equations mode: R given,
-// q, guess_t and pose_out nullptr. H (6, 6) and b (6,) are written in both
-// modes, before the prior and the damping. pose_out may alias t or q: every
-// block reads the pose before it arrives at the cluster barrier's second
-// phase, and rank 0 writes pose_out only after its wait on that phase.
+// One launch for B lanes. Step mode: R = nullptr, q and guess_t given,
+// pose_out the (B, 8) floats (t, q, |delta|) of the new poses; t and q (and
+// norm_in) are read at lane strides t_stride, q_stride (norm_stride), so a
+// pose may be a view of an earlier step's output; active (B,) and norm_in
+// may be nullptr (every lane active). Normal-equations mode: R (B, 3, 3)
+// given, q, guess_t, active and pose_out nullptr. H (B, 6, 6) and b (B, 6)
+// are written for every active lane, before the prior and the damping.
+// pose_out may alias t or q: every block reads the pose before it arrives at
+// the cluster barrier's second phase, and rank 0 writes pose_out only after
+// its wait on that phase (an inactive lane's one thread reads, then writes).
 extern "C" int gn_step_launch(const void* source_local, const void* plane_origin,
                               const void* plane_normal, const void* valid,
-                              const void* R, const void* t, const void* q,
-                              const void* guess_t, int Q, float huber_delta,
-                              float prior_w, float damping, void* H, void* b,
-                              void* pose_out, void* stream) {
+                              const void* R, const void* t, int t_stride, const void* q,
+                              int q_stride, const void* norm_in, int norm_stride,
+                              const void* active, const void* guess_t, int B, int Q,
+                              float huber_delta, float prior_w, float damping, void* H,
+                              void* b, void* pose_out, void* stream) {
+  if (B == 0) return 0;
   static const cudaError_t opted_in = cudaFuncSetAttribute(
       gn_step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (opted_in != cudaSuccess) return (int)opted_in;
@@ -360,7 +406,7 @@ extern "C" int gn_step_launch(const void* source_local, const void* plane_origin
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kBlocks, 1, 1);
+  cfg.gridDim = dim3(kBlocks * B, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &cluster;
@@ -368,7 +414,8 @@ extern "C" int gn_step_launch(const void* source_local, const void* plane_origin
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, gn_step_kernel, (const float*)source_local, (const float*)plane_origin,
       (const float*)plane_normal, (const unsigned char*)valid, (const float*)R,
-      (const float*)t, (const float*)q, (const float*)guess_t, Q, huber_delta, prior_w,
-      damping, (float*)H, (float*)b, (float*)pose_out);
+      (const float*)t, t_stride, (const float*)q, q_stride, (const float*)norm_in,
+      norm_stride, (const unsigned char*)active, (const float*)guess_t, Q, huber_delta,
+      prior_w, damping, (float*)H, (float*)b, (float*)pose_out);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

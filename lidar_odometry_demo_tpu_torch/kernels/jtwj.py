@@ -15,6 +15,11 @@ path) and `jtwj_accumulate` (H and b alone, the epilogue off). Both count
 their launches in `jtwj_accumulate.launches`. On CPU tensors each runs its
 plain version; on CUDA tensors it launches the kernel or raises. There is
 no fallback between the two.
+
+Lanes: every argument may carry a leading lane axis B (independent
+systems); one launch runs B clusters. `gn_step` then takes a (B,) `active`
+mask: an inactive lane keeps its pose and step norm (the ICP loop's frozen
+lanes). The plain version runs its B = 1 body per lane.
 """
 
 from __future__ import annotations
@@ -25,14 +30,18 @@ from typing import NamedTuple
 import torch
 
 from lidar_odometry_demo_tpu_torch.kernels import _build
-from lidar_odometry_demo_tpu_torch.kernels._build import check_tensor
+from lidar_odometry_demo_tpu_torch.kernels._build import check_tensors, lane_map, lanes
 from lidar_odometry_demo_tpu_torch.ops import se3
 
 
 def jtwj_plain(source_local, plane_origin, plane_normal, valid, R, t, *,
                huber_delta: float):
     """(H (6, 6), b (6,)) without the translation prior: the JAX package's
-    XLA formulation (``icp._normal_equations``) in float32."""
+    XLA formulation (``icp._normal_equations``) in float32. With a lane
+    axis, the B = 1 version per lane."""
+    if source_local.dim() == 3:
+        return lane_map(jtwj_plain, source_local.shape[0], source_local, plane_origin,
+                        plane_normal, valid, R, t, huber_delta=huber_delta)
     rp = se3.rot_pts(source_local, R)
     e = (rp + t - plane_origin) * plane_normal
     # summed in a stated order, which the kernel repeats: with few
@@ -100,13 +109,24 @@ def add_prior(H, b, t, guess_t, prior_w: float):
     return H + prior_diag, b + prior_w * torch.cat([torch.zeros_like(t), t - guess_t])
 
 
-def gn_step_plain(corr, pose: se3.Pose, guess_t: torch.Tensor, cfg):
+def gn_step_plain(corr, pose: se3.Pose, guess_t: torch.Tensor, cfg, *,
+                  step_norm: torch.Tensor | None = None,
+                  active: torch.Tensor | None = None):
     """One Gauss-Newton step as tensor ops: the normal equations, the
     translation prior, H + damping diag(H) + 1e-9 I, solve_spd_6x6,
     apply_delta and |delta| (the JAX package's ``icp._gn_steps`` body).
 
     Returns (pose, step_norm, H, b), H and b before the prior and damping.
+    With a lane axis, the B = 1 version per lane; where the (B,) `active`
+    is false the lane's `pose` and `step_norm` come back unchanged.
     """
+    if corr.source_local.dim() == 3:
+        new_pose, norm, H, b = lane_map(gn_step_plain, corr.source_local.shape[0], corr,
+                                        pose, guess_t, cfg)
+        if active is not None:
+            new_pose = se3.pose_where(active, new_pose, pose)
+            norm = torch.where(active, norm, step_norm)
+        return new_pose, norm, H, b
     R = se3.quat_to_matrix(pose.q)
     H0, b0 = jtwj_plain(corr.source_local, corr.plane_origin, corr.plane_normal,
                         corr.valid, R, pose.t, huber_delta=cfg.icp_huber_delta)
@@ -119,64 +139,91 @@ def gn_step_plain(corr, pose: se3.Pose, guess_t: torch.Tensor, cfg):
 
 class GnWork(NamedTuple):
     """Outputs of `steps` kernel steps, allocated once per ICP `align` and
-    reused by every round: slot k of `poses` holds step k's (t, q, |delta|);
-    H and b the last step's. `slots` are the per-step (Pose, step_norm)
-    views, made once."""
+    reused by every round: slot k of `poses` holds step k's (t, q, |delta|)
+    of every lane; H and b the last step's. `slots` are the per-step
+    (Pose, step_norm) views, made once."""
 
-    poses: torch.Tensor  # (steps, 8) float32
-    H: torch.Tensor      # (6, 6)
-    b: torch.Tensor      # (6,)
+    poses: torch.Tensor  # (steps, *lead, 8) float32
+    H: torch.Tensor      # (*lead, 6, 6)
+    b: torch.Tensor      # (*lead, 6)
     slots: tuple
 
     @staticmethod
-    def empty(steps: int, device) -> "GnWork":
-        poses = torch.empty((steps, 8), dtype=torch.float32, device=device)
-        slots = tuple((se3.Pose(poses[k, :3], poses[k, 3:7]), poses[k, 7])
+    def empty(steps: int, device, lead: tuple = ()) -> "GnWork":
+        """Workspace of `steps` steps for the lanes `lead` (() or (B,))."""
+        f32 = dict(dtype=torch.float32, device=device)
+        poses = torch.empty((steps, *lead, 8), **f32)
+        slots = tuple((se3.Pose(poses[k, ..., :3], poses[k, ..., 3:7]), poses[k, ..., 7])
                       for k in range(steps))
-        return GnWork(poses, torch.empty((6, 6), dtype=torch.float32, device=device),
-                      torch.empty((6,), dtype=torch.float32, device=device), slots)
+        return GnWork(poses, torch.empty((*lead, 6, 6), **f32), torch.empty((*lead, 6), **f32),
+                      slots)
 
 
-def _check_corr(source_local, plane_origin, plane_normal, valid) -> int:
-    Q = source_local.shape[0]
-    for name, x in (("source_local", source_local), ("plane_origin", plane_origin),
-                    ("plane_normal", plane_normal)):
-        check_tensor(x, name, torch.float32, (Q, 3))
-    check_tensor(valid, "valid", torch.bool, (Q,))
-    return Q
+def _corr_specs(source_local, plane_origin, plane_normal, valid):
+    """(lead, Q, check specs) of a correspondence set."""
+    lead, Q = tuple(source_local.shape[:-2]), source_local.shape[-2]
+    specs = [(x, name, torch.float32, (*lead, Q, 3))
+             for name, x in (("source_local", source_local), ("plane_origin", plane_origin),
+                             ("plane_normal", plane_normal))]
+    return lead, Q, specs + [(valid, "valid", torch.bool, (*lead, Q))]
+
+
+def _lane_stride(x: torch.Tensor, lead: tuple) -> int:
+    return x.stride(0) if lead else 0
 
 
 def _launcher():
     return _build.c_function("jtwj", "gn_step_launch",
-                             [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_float] * 3
-                             + [ctypes.c_void_p] * 4)
+                             [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p,
+                                                      ctypes.c_int, ctypes.c_void_p,
+                                                      ctypes.c_int]
+                             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                             + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
 
 
 def gn_step(corr, pose: se3.Pose, guess_t: torch.Tensor, cfg, *,
-            work: GnWork | None = None, slot: int = 0):
+            work: GnWork | None = None, slot: int = 0,
+            step_norm: torch.Tensor | None = None, active: torch.Tensor | None = None):
     """K2, one whole Gauss-Newton step: the plain version on CPU tensors, one
     kernel launch on CUDA ones.
 
     corr: a Correspondence (source_local / plane_origin / plane_normal
     (Q, 3) float32, valid (Q,) bool); pose (t (3,), q (4,)) and guess_t
-    (3,) float32. On CUDA the new pose, the step norm, H and b are views
-    into `work` (slot `slot` for the pose), valid until the next step that
-    writes them. Returns (pose, step_norm, H, b) as `gn_step_plain`.
+    (3,) float32; each may carry a leading lane axis B, and the pose may be
+    an earlier step's view into `work`. With lanes, `active` (B,) bool and
+    `step_norm` (B,) may be given: an inactive lane's pose and step norm
+    come back unchanged. On CUDA the new pose, the step norm, H and b are
+    views into `work` (slot `slot` for the pose), valid until the next step
+    that writes them. Returns (pose, step_norm, H, b) as `gn_step_plain`.
     """
     if corr.source_local.device.type == "cpu":
-        return gn_step_plain(corr, pose, guess_t, cfg)
-    Q = _check_corr(*corr)
-    check_tensor(pose.t, "pose.t", torch.float32, (3,))
-    check_tensor(pose.q, "pose.q", torch.float32, (4,))
-    check_tensor(guess_t, "guess_t", torch.float32, (3,))
+        return gn_step_plain(corr, pose, guess_t, cfg, step_norm=step_norm, active=active)
+    lead, Q, specs = _corr_specs(*corr)
+    if active is not None:
+        if not lead:
+            raise ValueError("active needs a lane axis")
+        if step_norm is None:
+            raise ValueError("active needs the input step_norm of every lane")
+        specs += [(active, "active", torch.bool, lead),
+                  (step_norm, "step_norm", torch.float32, lead, 1)]
     dev = corr.source_local.device
-    work = GnWork.empty(slot + 1, dev) if work is None else work
+    check_tensors(*specs, (pose.t, "pose.t", torch.float32, (*lead, 3), len(lead)),
+                  (pose.q, "pose.q", torch.float32, (*lead, 4), len(lead)),
+                  (guess_t, "guess_t", torch.float32, (*lead, 3)))
+    if work is None:
+        work = GnWork.empty(slot + 1, dev, lead)
+    elif work.poses.shape[1:] != (*lead, 8) or work.H.shape != (*lead, 6, 6):
+        raise ValueError(f"work holds lanes {tuple(work.H.shape[:-2])}, the step {lead}")
     _build.launch(_launcher(), dev, corr.source_local.data_ptr(),
                   corr.plane_origin.data_ptr(), corr.plane_normal.data_ptr(),
-                  corr.valid.data_ptr(), None, pose.t.data_ptr(), pose.q.data_ptr(),
-                  guess_t.data_ptr(), Q, float(cfg.icp_huber_delta),
-                  float(prior_weight(cfg)), float(cfg.icp_damping), work.H.data_ptr(),
-                  work.b.data_ptr(), work.poses[slot].data_ptr())
+                  corr.valid.data_ptr(), None, pose.t.data_ptr(), _lane_stride(pose.t, lead),
+                  pose.q.data_ptr(), _lane_stride(pose.q, lead),
+                  None if active is None else step_norm.data_ptr(),
+                  0 if active is None else _lane_stride(step_norm, lead),
+                  None if active is None else active.data_ptr(), guess_t.data_ptr(),
+                  lanes(lead), Q, float(cfg.icp_huber_delta), float(prior_weight(cfg)),
+                  float(cfg.icp_damping), work.H.data_ptr(), work.b.data_ptr(),
+                  work.poses[slot].data_ptr())
     jtwj_accumulate.launches += 1
     new_pose, step_norm = work.slots[slot]
     return new_pose, step_norm, work.H, work.b
@@ -188,21 +235,22 @@ def jtwj_accumulate(source_local, plane_origin, plane_normal, valid, R, t, *,
     on CPU tensors, the CUDA kernel on CUDA ones.
 
     source_local / plane_origin / plane_normal (Q, 3) float32, valid (Q,)
-    bool, R (3, 3) and t (3,) float32; any Q.
+    bool, R (3, 3) and t (3,) float32, each with an optional leading lane
+    axis B; any Q.
     """
     if source_local.device.type == "cpu":
         return jtwj_plain(source_local, plane_origin, plane_normal, valid, R, t,
                           huber_delta=huber_delta)
-    Q = _check_corr(source_local, plane_origin, plane_normal, valid)
-    check_tensor(R, "R", torch.float32, (3, 3))
-    check_tensor(t, "t", torch.float32, (3,))
+    lead, Q, specs = _corr_specs(source_local, plane_origin, plane_normal, valid)
+    check_tensors(*specs, (R, "R", torch.float32, (*lead, 3, 3)),
+                  (t, "t", torch.float32, (*lead, 3)))
     dev = source_local.device
-    H = torch.empty((6, 6), dtype=torch.float32, device=dev)
-    b = torch.empty((6,), dtype=torch.float32, device=dev)
+    H = torch.empty((*lead, 6, 6), dtype=torch.float32, device=dev)
+    b = torch.empty((*lead, 6), dtype=torch.float32, device=dev)
     _build.launch(_launcher(), dev, source_local.data_ptr(), plane_origin.data_ptr(),
                   plane_normal.data_ptr(), valid.data_ptr(), R.data_ptr(), t.data_ptr(),
-                  None, None, Q, float(huber_delta), 0.0, 0.0, H.data_ptr(),
-                  b.data_ptr(), None)
+                  3, None, 0, None, 0, None, None, lanes(lead), Q, float(huber_delta), 0.0,
+                  0.0, H.data_ptr(), b.data_ptr(), None)
     jtwj_accumulate.launches += 1
     return H, b
 

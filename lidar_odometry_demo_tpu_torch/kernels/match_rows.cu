@@ -36,6 +36,14 @@
 // Layout: rows_z[s] is (9*Q, RW) float32 bits, column-major (9, Q) row order;
 // lanes [0,K) x, [K,2K) y, [2K,3K) z, [3K] count as f32. n_present and base
 // are (9, Q); tab is (C, W).
+//
+// Lanes: B independent sequences in one launch. Every input and output
+// above gains a leading B (query (B, Q, 3), R (B, 3, 3), t (B, 3), rows_z[s]
+// (B, 9*Q, RW), tab (B, C, W), ...), and the lane is the grid's second
+// dimension. A lane's work is the B = 1 kernel's on that lane's inputs, so
+// its result is bitwise the same. The lane enters as index offsets (the
+// query's index over all lanes, its first candidate row), not as moved
+// pointers, which would hold registers the 32-register budget lacks.
 
 #include <cuda_runtime.h>
 
@@ -62,6 +70,9 @@ match_kernel(const float* __restrict__ query, const unsigned char* __restrict__ 
   const int lane = threadIdx.x & 31;
   const int q = blockIdx.x * kWarps + warp;
   if (q >= Q) return;  // uniform across the warp; no block-wide barrier below
+  const int b = blockIdx.y;  // the sequence
+  const int gq = b * Q + q;  // the query over all lanes (the launcher keeps 9 B Q < 2^31)
+  const int col0 = (9 * b) * Q + q;  // its column 0's candidate row
 
   // (1) slice j = lane: column c = j / 3, z-slot s = j % 3; its presence
   // and column base, and the query, all loaded at once; then the count lanes
@@ -73,14 +84,16 @@ match_kernel(const float* __restrict__ query, const unsigned char* __restrict__ 
   float cnt = -1.f;
   const float* row = rows0;
   if (j < kSlices) {
-    const long long cq = (long long)c * Q + q;
+    const long long cq = col0 + c * Q;
     row = (s == 0 ? rows0 : s == 1 ? rows1 : rows2) + cq * RW;
     np = n_present[cq];
     if (base != nullptr) bs = base[cq];
   }
-  float qx = query[3 * q], qy = query[3 * q + 1], qz = query[3 * q + 2];
-  const bool qvalid = query_valid == nullptr || query_valid[q] != 0;
+  float qx = query[3 * gq], qy = query[3 * gq + 1], qz = query[3 * gq + 2];
+  const bool qvalid = query_valid == nullptr || query_valid[gq] != 0;
   if (R != nullptr) {  // rot_pts(q, R) + t, element-wise in its order
+    R += 9 * b;
+    t += 3 * b;
     const float x = qx, y = qy, z = qz;
     qx = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, R[0]), __fmul_rn(y, R[1])), __fmul_rn(z, R[2])), t[0]);
     qy = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, R[3]), __fmul_rn(y, R[4])), __fmul_rn(z, R[5])), t[1]);
@@ -102,7 +115,7 @@ match_kernel(const float* __restrict__ query, const unsigned char* __restrict__ 
 
   auto lanes_of = [&](int js) -> const float* {  // slice js's x lanes
     const int cs = js / 3, ss = js - 3 * (js / 3);
-    return (ss == 0 ? rows0 : ss == 1 ? rows1 : rows2) + ((long long)cs * Q + q) * RW;
+    return (ss == 0 ? rows0 : ss == 1 ? rows1 : rows2) + (long long)(col0 + cs * Q) * RW;
   };
 
   // (2) live slot u = lane + 32 i, in batches whose loads go out together:
@@ -161,37 +174,38 @@ match_kernel(const float* __restrict__ query, const unsigned char* __restrict__ 
   const int bw = __shfl_sync(kFull, bs, wj);
   const bool valid = qvalid && bd < max_d2;
   if (lane < 3) {
-    out_origin[3 * q + lane] = valid ? lanes_of(wj)[lane * K + wk] : 0.f;
+    out_origin[3 * gq + lane] = valid ? lanes_of(wj)[lane * K + wk] : 0.f;
     if (out_normal != nullptr) {
       float n = 0.f;
       if (valid) {
         const int slot = min(bw + (wj - 3 * (wj / 3)), C - 1);
-        n = tab[(long long)slot * W + RW + 3 * wk + lane];
+        n = tab[((long long)b * C + slot) * W + RW + 3 * wk + lane];
       }
-      out_normal[3 * q + lane] = n;
+      out_normal[3 * gq + lane] = n;
     }
   }
   if (lane == 0) {
-    if (out_valid != nullptr) out_valid[q] = valid;
-    out_index[q] = bi;
-    out_d2[q] = bd;
+    if (out_valid != nullptr) out_valid[gq] = valid;
+    out_index[gq] = bi;
+    out_d2[gq] = bd;
   }
 }
 
 }  // namespace
 
-// One launch. Pose mode: R (3, 3), t (3,) given, `query` is the local
-// point and q_world = R q + t; query_valid, base, tab and out_normal
-// given. Point mode (match_rows): R, t, query_valid, base, tab, out_normal
-// and out_valid nullptr, `query` is q_world.
+// One launch for B lanes. Pose mode: R (B, 3, 3), t (B, 3) given, `query`
+// is the local point and q_world = R q + t; query_valid, base, tab and
+// out_normal given. Point mode (match_rows): R, t, query_valid, base, tab,
+// out_normal and out_valid nullptr, `query` is q_world.
 extern "C" int match_launch(const void* query, const void* query_valid, const void* R,
                             const void* t, const void* rows0, const void* rows1,
                             const void* rows2, const void* n_present, const void* base,
-                            const void* tab, int Q, int K, int RW, int C, int W,
+                            const void* tab, int B, int Q, int K, int RW, int C, int W,
                             float max_d2, void* out_origin, void* out_normal,
                             void* out_valid, void* out_index, void* out_d2, void* stream) {
-  if (Q == 0) return 0;
-  const int blocks = (Q + kWarps - 1) / kWarps;
+  if ((long long)B * 9 * Q >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (Q == 0 || B == 0) return 0;
+  const dim3 blocks((Q + kWarps - 1) / kWarps, B);
   match_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const float*)query, (const unsigned char*)query_valid, (const float*)R,
       (const float*)t, (const float*)rows0, (const float*)rows1, (const float*)rows2,

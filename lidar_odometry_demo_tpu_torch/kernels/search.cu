@@ -24,6 +24,14 @@
 //   keys in the shifted table, pos_c = min(lower bound, C - 1) and
 //   found = (q != EMPTY_KEY) & (keys[pos_c] == q).
 //
+// Lanes: the neighbourhood and group lookups serve B independent maps in one
+// launch. Every per-sequence input and output gains a leading B (keys
+// (B, C), tab (B, C, W), origin (B, 3), the pose (B, 3, 3) / (B, 3), the
+// queries (B, Q, 3) or (B, N), ...), the lane is the grid's second
+// dimension, and a lane's result is bitwise the B = 1 launch's. The group
+// lookup's queries are sorted within each lane. The bare search keeps its
+// one table.
+//
 // Bound on Hopper: device-memory bytes for the neighbourhood lookup (each
 // present slice's 256-byte row read and written, ~17 MB on the bench drive's
 // map at Q = 8192), and the latency of dependent loads for the searches: the
@@ -94,6 +102,11 @@ group_kernel(Table t, const int* __restrict__ queries, int N, int* __restrict__ 
              unsigned char* __restrict__ found) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= N) return;
+  const long long b = blockIdx.y;  // the lane: its table, queries and outputs
+  t.keys += b * t.C;
+  queries += b * N;
+  pos_c += b * N;
+  found += b * N;
   const int q = queries[i];
   const int p = min(lower_bound(t, q), t.C - 1);
   pos_c[i] = p;
@@ -122,6 +135,21 @@ neighborhood_kernel(Table t, Neighborhood a) {
   __shared__ int2 lists[kWarps][kRowsPerWarp];
   const int lane = threadIdx.x & 31;
   int2* list = lists[threadIdx.x >> 5];
+  {  // the block's sequence (grid y): its map, queries, pose and outputs
+    const long long b = blockIdx.y;
+    t.keys += b * t.C;
+    a.tab += b * t.C * a.W;
+    a.origin += b * 3;
+    a.query += b * 3 * a.Q;
+    a.valid += b * a.Q;
+    a.R += b * 9;
+    a.t += b * 3;
+    a.base += b * 9 * a.Q;
+    a.n_present += b * 9 * a.Q;
+    a.rows0 += b * 9 * a.Q * a.RW;
+    a.rows1 += b * 9 * a.Q * a.RW;
+    a.rows2 += b * 9 * a.Q * a.RW;
+  }
 
   // (1) the column's slots. No thread returns early: the whole warp copies.
   const int j = blockIdx.x * kThreads + threadIdx.x;
@@ -226,26 +254,28 @@ extern "C" int search_sorted_launch(const void* keys, int C, const void* queries
   return (int)cudaGetLastError();
 }
 
-extern "C" int group_lookup_launch(const void* keys, int C, const void* queries, int N,
-                                   void* pos_c, void* found, void* stream) {
-  if (N == 0) return 0;
-  group_kernel<<<blocks_for(N), kThreads, 0, (cudaStream_t)stream>>>(
+// B lanes: keys (B, C), queries, pos_c and found (B, N).
+extern "C" int group_lookup_launch(const void* keys, int C, const void* queries, int B,
+                                   int N, void* pos_c, void* found, void* stream) {
+  if (N == 0 || B == 0) return 0;
+  group_kernel<<<dim3(blocks_for(N), B), kThreads, 0, (cudaStream_t)stream>>>(
       make_table(keys, C), (const int*)queries, N, (int*)pos_c, (unsigned char*)found);
   return (int)cudaGetLastError();
 }
 
-// One launch writes base, n_present and the present rows of a CandidateSet.
+// One launch writes base, n_present and the present rows of the CandidateSets
+// of B lanes.
 extern "C" int neighborhood_launch(const void* tab, int C, int W, int RW, const void* keys,
                                    const void* origin, const void* query, const void* valid,
-                                   int Q, const void* R, const void* t, float voxel_size,
-                                   void* base, void* n_present, void* rows0, void* rows1,
-                                   void* rows2, void* stream) {
-  if (Q == 0) return 0;
+                                   int B, int Q, const void* R, const void* t,
+                                   float voxel_size, void* base, void* n_present, void* rows0,
+                                   void* rows1, void* rows2, void* stream) {
+  if (Q == 0 || B == 0) return 0;
   const Neighborhood a{(const int*)tab, W, RW, (const int*)origin, (const float*)query,
                        (const unsigned char*)valid, (const float*)R, (const float*)t,
                        voxel_size, Q, (int*)base, (int*)n_present, (int*)rows0,
                        (int*)rows1, (int*)rows2};
-  neighborhood_kernel<<<blocks_for(9LL * Q), kThreads, 0, (cudaStream_t)stream>>>(
+  neighborhood_kernel<<<dim3(blocks_for(9LL * Q), B), kThreads, 0, (cudaStream_t)stream>>>(
       make_table(keys, C), a);
   return (int)cudaGetLastError();
 }

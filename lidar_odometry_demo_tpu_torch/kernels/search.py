@@ -13,7 +13,11 @@ key table, and the work around it in the voxel map:
 - `group_lookup`: map_update's lookup of its sorted incoming keys, the
   clamped slot and whether the key is already in the table.
 
-Every launch of any mode counts in `search_sorted.launches`. The kernel is
+The neighbourhood and group lookups take a leading lane axis B on every
+argument (B sequences, each with its own map): one launch serves all
+lanes, and their plain versions run the B = 1 body per lane. The bare
+search keeps its one table. Every launch of any mode counts in
+`search_sorted.launches`. The kernel is
 bound by device-memory bytes (the neighbourhood lookup's row copy) and by the
 latency of dependent loads (the searches); see the source's note. On CPU
 tensors each mode runs its plain version; on CUDA tensors it launches the
@@ -33,7 +37,7 @@ import torch
 
 from lidar_odometry_demo_tpu_torch.device import true_div
 from lidar_odometry_demo_tpu_torch.kernels import _build
-from lidar_odometry_demo_tpu_torch.kernels._build import check_tensor
+from lidar_odometry_demo_tpu_torch.kernels._build import check_tensors, lane_map, lanes
 from lidar_odometry_demo_tpu_torch.ops.se3 import rot_pts
 
 # int32 key packing: x:[20..30] (11 bits), y:[9..19] (11 bits), z:[0..8] (9 bits)
@@ -75,10 +79,13 @@ class CandidateSet(NamedTuple):
     n_present: torch.Tensor
 
     @staticmethod
-    def empty(Q: int, row_width: int, device) -> "CandidateSet":
+    def empty(Q: int, row_width: int, device, lead: tuple = ()) -> "CandidateSet":
+        """A CandidateSet for Q queries of each of the lanes `lead` (() or
+        (B,)), every field with that leading axis."""
         i32 = dict(dtype=torch.int32, device=device)
-        return CandidateSet(tuple(torch.empty((9 * Q, row_width), **i32) for _ in range(3)),
-                            torch.empty((9, Q), **i32), torch.empty((9, Q), **i32))
+        return CandidateSet(
+            tuple(torch.empty((*lead, 9 * Q, row_width), **i32) for _ in range(3)),
+            torch.empty((*lead, 9, Q), **i32), torch.empty((*lead, 9, Q), **i32))
 
 
 def search_steps(C: int) -> int:
@@ -158,8 +165,11 @@ def neighborhood_slots_plain(keys: torch.Tensor, origin: torch.Tensor,
     voxel of the window, base is the insertion slot (the JAX directory
     gives C-1 there); such rows are masked by n_present = 0. A sorted-key
     search takes the place of the JAX module's dense column directory and
-    z-occupancy descriptors.
+    z-occupancy descriptors. With a lane axis, the B = 1 version per lane.
     """
+    if keys.dim() == 2:
+        return lane_map(neighborhood_slots_plain, keys.shape[0], keys, origin, q_world,
+                        query_valid, voxel_size=voxel_size)
     C = keys.shape[0]
     col_ok, rxc, ryc, zd, start_key = _column_keys(origin, q_world, query_valid, voxel_size)
     pos = search_sorted_plain(keys, start_key.reshape(-1))
@@ -184,7 +194,12 @@ def neighborhood_lookup_plain(tab, keys, origin, query_local, query_valid, pose_
     """The neighbourhood lookup as tensor ops: the world points, the slots,
     and three row gathers of the search lanes [0, row_width) at slots base,
     base+1, base+2 (clamped to the table), every slice gathered as the JAX
-    package does (rows at or past n_present are masked by the contract)."""
+    package does (rows at or past n_present are masked by the contract).
+    With a lane axis, the B = 1 version per lane."""
+    if keys.dim() == 2:
+        return lane_map(neighborhood_lookup_plain, keys.shape[0], tab, keys, origin,
+                        query_local, query_valid, pose_t, pose_R, voxel_size=voxel_size,
+                        row_width=row_width)
     q_world = query_world(query_local, pose_R, pose_t)
     base, n_present = neighborhood_slots_plain(keys, origin, q_world, query_valid,
                                                voxel_size=voxel_size)
@@ -198,7 +213,10 @@ def neighborhood_lookup_plain(tab, keys, origin, query_local, query_valid, pose_
 def group_lookup_plain(keys: torch.Tensor, queries: torch.Tensor):
     """(pos_c (N,) int32, found (N,) bool): map_update's lookup of its
     sorted keys in the table, pos_c = min(lower bound, C-1) and found =
-    (query != EMPTY_KEY) & (keys[pos_c] == query)."""
+    (query != EMPTY_KEY) & (keys[pos_c] == query). With a lane axis, the
+    B = 1 version per lane."""
+    if keys.dim() == 2:
+        return lane_map(group_lookup_plain, keys.shape[0], keys, queries)
     pos_c = torch.clamp_max(search_sorted_plain(keys, queries), keys.shape[0] - 1)
     found = (queries != EMPTY_KEY) & (keys[pos_c.long()] == queries)
     return pos_c, found
@@ -224,8 +242,7 @@ def search_sorted(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     if queries.device.type == "cpu":
         return search_sorted_plain(keys, queries)
     C, N = keys.shape[0], queries.shape[0]
-    check_tensor(keys, "keys", torch.int32, (C,))
-    check_tensor(queries, "queries", torch.int32, (N,))
+    check_tensors((keys, "keys", torch.int32, (C,)), (queries, "queries", torch.int32, (N,)))
     out = torch.empty((N,), dtype=torch.int32, device=queries.device)
     if N == 0:
         return out
@@ -249,42 +266,45 @@ def neighborhood_lookup(tab, keys, origin, query_local, query_valid, pose_t, pos
 
     tab (C, W) int32 map rows, keys (C,) int32 sorted, origin (3,) int32;
     query_local (Q, 3) float32, query_valid (Q,) bool; pose_t (3,) and
-    pose_R (3, 3) float32; row_width RW, the search lanes copied per slice.
+    pose_R (3, 3) float32; each may carry a leading lane axis B (one map
+    and pose per lane). row_width RW, the search lanes copied per slice.
     On CUDA the CandidateSet is written into `out` (allocated if None): base
     and n_present everywhere, rows only where s < n_present.
     """
     if query_local.device.type == "cpu":
         return neighborhood_lookup_plain(tab, keys, origin, query_local, query_valid, pose_t,
                                          pose_R, voxel_size=voxel_size, row_width=row_width)
-    C, W = tab.shape[0], tab.shape[-1]
-    Q, RW = query_local.shape[0], row_width
-    check_tensor(tab, "tab", torch.int32, (C, W))
-    check_tensor(keys, "keys", torch.int32, (C,))
-    check_tensor(origin, "origin", torch.int32, (3,))
-    check_tensor(query_local, "query_local", torch.float32, (Q, 3))
-    check_tensor(query_valid, "query_valid", torch.bool, (Q,))
-    check_tensor(pose_t, "pose_t", torch.float32, (3,))
-    check_tensor(pose_R, "pose_R", torch.float32, (3, 3))
+    lead = tuple(keys.shape[:-1])
+    B, C, W = lanes(lead), keys.shape[-1], tab.shape[-1]
+    Q, RW = query_local.shape[-2], row_width
+    out = CandidateSet.empty(Q, RW, query_local.device, lead) if out is None else out
+    check_tensors(
+        (tab, "tab", torch.int32, (*lead, C, W)), (keys, "keys", torch.int32, (*lead, C)),
+        (origin, "origin", torch.int32, (*lead, 3)),
+        (query_local, "query_local", torch.float32, (*lead, Q, 3)),
+        (query_valid, "query_valid", torch.bool, (*lead, Q)),
+        (pose_t, "pose_t", torch.float32, (*lead, 3)),
+        (pose_R, "pose_R", torch.float32, (*lead, 3, 3)),
+        *((r, f"out.rows_z[{s}]", torch.int32, (*lead, 9 * Q, RW))
+          for s, r in enumerate(out.rows_z)),
+        (out.base, "out.base", torch.int32, (*lead, 9, Q)),
+        (out.n_present, "out.n_present", torch.int32, (*lead, 9, Q)))
     if C == 0:
         raise ValueError("the neighbourhood lookup needs a table of at least one row")
     if RW % 4 or RW > W or W % 4:
         raise ValueError(f"row_width {RW} and table width {W} must be multiples of 4, "
                          f"row_width <= width")
-    out = CandidateSet.empty(Q, RW, query_local.device) if out is None else out
     for s, r in enumerate(out.rows_z):
-        check_tensor(r, f"out.rows_z[{s}]", torch.int32, (9 * Q, RW))
         _check_aligned(r, f"out.rows_z[{s}]")
-    check_tensor(out.base, "out.base", torch.int32, (9, Q))
-    check_tensor(out.n_present, "out.n_present", torch.int32, (9, Q))
     _check_aligned(tab, "tab")
-    if Q == 0:
+    if Q == 0 or B == 0:
         return out
     fn = _build.c_function("search", "neighborhood_launch",
                            [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-                           + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_float]
+                           + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_float]
                            + [ctypes.c_void_p] * 6)
     _build.launch(fn, query_local.device, tab.data_ptr(), C, W, RW, keys.data_ptr(),
-                  origin.data_ptr(), query_local.data_ptr(), query_valid.data_ptr(), Q,
+                  origin.data_ptr(), query_local.data_ptr(), query_valid.data_ptr(), B, Q,
                   pose_R.data_ptr(), pose_t.data_ptr(), float(voxel_size),
                   out.base.data_ptr(), out.n_present.data_ptr(),
                   *(r.data_ptr() for r in out.rows_z))
@@ -295,22 +315,25 @@ def neighborhood_lookup(tab, keys, origin, query_local, query_valid, pose_t, pos
 def group_lookup(keys: torch.Tensor, queries: torch.Tensor):
     """K3's group lookup: the plain version on CPU tensors, one kernel
     launch on CUDA ones. keys (C,) int32 sorted, C >= 1; queries (N,) int32
-    (map_update's are sorted). Returns (pos_c (N,) int32, found (N,) bool)."""
+    (map_update's are sorted); both may carry a leading lane axis B (each
+    lane's keys and queries sorted on their own). Returns (pos_c (N,)
+    int32, found (N,) bool), with the same leading axis."""
     if queries.device.type == "cpu":
         return group_lookup_plain(keys, queries)
-    C, N = keys.shape[0], queries.shape[0]
-    check_tensor(keys, "keys", torch.int32, (C,))
-    check_tensor(queries, "queries", torch.int32, (N,))
+    lead = tuple(keys.shape[:-1])
+    B, C, N = lanes(lead), keys.shape[-1], queries.shape[-1]
+    check_tensors((keys, "keys", torch.int32, (*lead, C)),
+                  (queries, "queries", torch.int32, (*lead, N)))
     if C == 0:
         raise ValueError("the group lookup needs a table of at least one key")
-    pos_c = torch.empty((N,), dtype=torch.int32, device=queries.device)
-    found = torch.empty((N,), dtype=torch.bool, device=queries.device)
-    if N == 0:
+    pos_c = torch.empty((*lead, N), dtype=torch.int32, device=queries.device)
+    found = torch.empty((*lead, N), dtype=torch.bool, device=queries.device)
+    if N == 0 or B == 0:
         return pos_c, found
     fn = _build.c_function("search", "group_lookup_launch",
                            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    _build.launch(fn, queries.device, keys.data_ptr(), C, queries.data_ptr(), N,
+                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    _build.launch(fn, queries.device, keys.data_ptr(), C, queries.data_ptr(), B, N,
                   pos_c.data_ptr(), found.data_ptr())
     search_sorted.launches += 1
     return pos_c, found

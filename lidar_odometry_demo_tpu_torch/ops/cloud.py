@@ -1,7 +1,9 @@
 """Fixed-capacity point-cloud containers (port of the JAX ``ops/cloud.py``).
 
 Clouds are padded struct-of-arrays tensors with a validity mask: filtering
-clears mask bits and never erases, so every stage sees a fixed shape.
+clears mask bits and never erases, so every stage sees a fixed shape. A
+batch of B sequences puts a leading lane axis on every field; `count` then
+counts per lane.
 """
 
 from __future__ import annotations
@@ -45,6 +47,26 @@ class PointsWithNormals(NamedTuple):
 
     def count(self) -> torch.Tensor:
         return torch.sum(self.valid.to(torch.int32), dim=-1, dtype=torch.int32)
+
+
+def lane_offsets(idx: torch.Tensor, stride: int) -> torch.Tensor:
+    """Integer indices idx (B, ...) into each lane's block of `stride` rows
+    -> indices into the rows of all B lanes flattened (lane b's block starts
+    at b * stride); a 1-D idx (no lane axis) is returned as it is."""
+    if idx.dim() == 1:
+        return idx
+    B = idx.shape[0]
+    lane = torch.arange(B, dtype=idx.dtype, device=idx.device) * stride
+    return idx + lane.reshape(B, *([1] * (idx.dim() - 1)))
+
+
+def rows_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of x (..., N, *F) at integer indices idx (..., M): (..., M, *F),
+    the leading lane axis (if any) shared by both, in one row gather."""
+    if idx.dim() == 1:
+        return x[idx]
+    flat = x.reshape(-1, *x.shape[2:])[lane_offsets(idx, x.shape[1]).reshape(-1)]
+    return flat.reshape(*idx.shape, *x.shape[2:])
 
 
 def scan_from_numpy(

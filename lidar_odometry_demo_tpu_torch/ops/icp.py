@@ -17,6 +17,15 @@
 
 The outer loop is Python control flow: each round reads its exit condition
 from the device (one synchronisation per round).
+
+Lanes: `align` also takes B independent problems at once (a leading lane
+axis on the map, the queries and the guess), as the JAX package's
+`while_loop` under `vmap` does: rounds go on while any lane's condition
+holds, and a finished lane is frozen (kernel K2 returns its pose and step
+norm unchanged; every other update is masked). Each lane's round counter
+and stall count live on the host, beside the one read per round, so a
+round costs no device work for them and the single-sequence path runs no
+extra operation.
 """
 
 from __future__ import annotations
@@ -39,17 +48,19 @@ class IcpResult(NamedTuple):
 
 
 def _gn_steps(corr: vm.Correspondence, pose: se3.Pose, guess_t: torch.Tensor,
-              cfg: OdometryConfig, work: GnWork | None = None):
+              cfg: OdometryConfig, work: GnWork | None = None,
+              step_norm: torch.Tensor | None = None, active: torch.Tensor | None = None):
     """cfg.icp_inner_iterations Gauss-Newton steps on a fixed
     correspondence set (cloud_matcher.cpp:111,156-158): one K2 launch each
     on CUDA, with no tensor operation between them; step k writes slot k of
-    `work` (allocated here if the caller has none)."""
+    `work` (allocated here if the caller has none). Over a lane axis, a
+    lane where `active` is false keeps `pose` and `step_norm`."""
     n = cfg.icp_inner_iterations
     if work is None:
-        work = GnWork.empty(n, pose.t.device)
-    step_norm = None
+        work = GnWork.empty(n, pose.t.device, tuple(guess_t.shape[:-1]))
     for k in range(n):
-        pose, step_norm, _, _ = gn_step(corr, pose, guess_t, cfg, work=work, slot=k)
+        pose, step_norm, _, _ = gn_step(corr, pose, guess_t, cfg, work=work, slot=k,
+                                        step_norm=step_norm, active=active)
     return pose, step_norm
 
 
@@ -57,7 +68,9 @@ def make_align(cfg: OdometryConfig):
     """align(map, query_xyz (Q, 3) local, query_valid (Q,), guess)
     -> IcpResult, mirroring CloudMatcher::align (cloud_matcher.cpp:105-178):
     with cfg.icp_cached_candidates the candidates are gathered once at the
-    guess pose; without it every round re-searches the map at its pose."""
+    guess pose; without it every round re-searches the map at its pose.
+    Every argument may carry a leading lane axis B; the result then has it
+    too (iterations, step norm and matches per lane)."""
     voxel_size = cfg.keyframe_voxel_size
     max_dist = cfg.icp_max_correspondence_distance
     delta = cfg.icp_huber_delta
@@ -66,64 +79,83 @@ def make_align(cfg: OdometryConfig):
               guess: se3.Pose) -> IcpResult:
         dev = query_xyz.device
         f32 = dict(dtype=torch.float32, device=dev)
-        Q = query_xyz.shape[0]
+        lead = tuple(query_xyz.shape[:-2])
+        Q = query_xyz.shape[-2]
         if cfg.icp_cached_candidates:
             cand = vm.gather_candidates(
                 m, query_xyz, query_valid, guess.t,
                 se3.quat_to_matrix(guess.q), voxel_size=voxel_size)
         else:  # K3's candidates, rewritten every round
-            cand_out = vm.CandidateSet.empty(Q, vm._lanes(m.max_points)[0], dev)
+            cand_out = vm.CandidateSet.empty(Q, vm._lanes(m.max_points)[0], dev, lead)
         nrm_view = m.nrm  # derived once per scan, not once per round
         # K1's and K2's outputs, allocated once and rewritten every round
-        match_out = vm.Match.empty(Q, dev)
-        gn_work = GnWork.empty(cfg.icp_inner_iterations, dev)
+        match_out = vm.Match.empty(Q, dev, lead)
+        gn_work = GnWork.empty(cfg.icp_inner_iterations, dev, lead)
         tol = torch.tensor(cfg.icp_convergence_step_norm, **f32)
 
         pose = guess
-        step_norm = torch.tensor(1e9, **f32)
-        n_matches = torch.zeros((), dtype=torch.int32, device=dev)
-        best_cost = torch.tensor(1e9, **f32)
+        step_norm = torch.full(lead, 1e9, **f32)
+        n_matches = torch.zeros(lead, dtype=torch.int32, device=dev)
+        best_cost = torch.full(lead, 1e9, **f32)
         best_pose = guess
         best_matches = n_matches
-        i, stall, not_converged = 0, 0, True
-        while (i < cfg.icp_max_outer_iterations
-               and (not_converged or i <= cfg.icp_min_outer_iterations - 1)
-               and stall < cfg.icp_stall_exit_rounds):
+        # per lane, on the host: rounds run, rounds without improvement, and
+        # the last round's convergence flag (the JAX loop's carry)
+        n_lanes = lead[0] if lead else 1
+        i, stall, not_converged = [0] * n_lanes, [0] * n_lanes, [True] * n_lanes
+        while True:
+            go = [i[b] < cfg.icp_max_outer_iterations
+                  and (not_converged[b] or i[b] <= cfg.icp_min_outer_iterations - 1)
+                  and stall[b] < cfg.icp_stall_exit_rounds for b in range(n_lanes)]
+            if not any(go):
+                break
+            # a finished lane's carry stays as it is (None: every lane runs)
+            active = None if all(go) else torch.tensor(go, device=dev)
             R = se3.quat_to_matrix(pose.q)
+            # K2's pose is a view into its workspace: over lanes, at a stride
+            # K1 and K3 do not take (one sequence's is contiguous already)
+            t_now = pose.t.contiguous()
             if cfg.icp_cached_candidates:
-                corr = vm.match_candidates(m, cand, query_xyz, query_valid, pose.t, R,
+                corr = vm.match_candidates(m, cand, query_xyz, query_valid, t_now, R,
                                            max_distance=max_dist, nrm_view=nrm_view,
                                            out=match_out)
             else:  # re-search the table at the current pose every round
-                corr = vm.find_correspondences(m, query_xyz, query_valid, pose.t, R,
+                corr = vm.find_correspondences(m, query_xyz, query_valid, t_now, R,
                                                voxel_size=voxel_size, max_distance=max_dist,
                                                nrm_view=nrm_view, out=match_out,
                                                cand_out=cand_out)
-            n_matches = torch.sum(corr.valid, dtype=torch.int32)
+            round_matches = torch.sum(corr.valid, dim=-1, dtype=torch.int32)
             # robust mean cost of this pose on its own correspondence set
-            p_w = se3.rot_pts(corr.source_local, R) + pose.t
+            p_w = se3.rot_pts(corr.source_local, R) + pose.t[..., None, :]
             r = torch.sum((p_w - corr.plane_origin) * corr.plane_normal, dim=-1)
             absr = torch.abs(r)
             hub = torch.where(absr <= delta, 0.5 * r * r, delta * (absr - 0.5 * delta))
-            cost_sum = torch.sum(torch.where(corr.valid, hub, 0.0))
-            cost = cost_sum / torch.clamp_min(n_matches.to(torch.float32), 1.0)
+            cost_sum = torch.sum(torch.where(corr.valid, hub, 0.0), dim=-1)
+            cost = cost_sum / torch.clamp_min(round_matches.to(torch.float32), 1.0)
             improved = cost < best_cost * (1.0 - cfg.icp_stall_rel_tolerance)
+            if active is None:
+                n_matches = round_matches
+            else:
+                improved = improved & active
+                n_matches = torch.where(active, round_matches, n_matches)
             best_pose = se3.pose_where(improved, pose, best_pose)
-            best_matches = torch.where(improved, n_matches, best_matches)
+            best_matches = torch.where(improved, round_matches, best_matches)
             best_cost = torch.where(improved, cost, best_cost)
-            pose, step_norm = _gn_steps(corr, pose, guess.t, cfg, gn_work)
-            i += 1
-            # the round's one device read: its exit conditions
-            not_converged, was_improved = torch.stack(
-                [step_norm >= tol, improved]).tolist()
-            stall = 0 if was_improved else stall + 1
+            pose, step_norm = _gn_steps(corr, pose, guess.t, cfg, gn_work, step_norm, active)
+            # the round's one device read: every lane's exit conditions
+            flags = torch.stack([step_norm >= tol, improved]).reshape(2, n_lanes).tolist()
+            for b in range(n_lanes):
+                if go[b]:
+                    i[b] += 1
+                    not_converged[b] = flags[0][b]
+                    stall[b] = 0 if flags[1][b] else stall[b] + 1
 
         if cfg.icp_best_pose_exit:
             converged = step_norm < tol
             pose = se3.pose_where(converged, pose, best_pose)
             n_matches = torch.where(converged, n_matches, best_matches)
         pose = se3.Pose(pose.t, se3.quat_normalize(pose.q))
-        iters = torch.tensor(i, dtype=torch.int32, device=dev)
+        iters = torch.tensor(i if lead else i[0], dtype=torch.int32, device=dev)
         return IcpResult(pose, iters, step_norm, n_matches)
 
     return align

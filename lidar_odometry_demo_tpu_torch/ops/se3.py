@@ -2,8 +2,9 @@
 
 Quaternions are (..., 4) tensors in (w, x, y, z) order; a `Pose` holds a
 translation (..., 3) and a unit rotation quaternion (..., 4). Every function
-broadcasts over leading batch dimensions and keeps the JAX package's
-arithmetic order, so results agree to float32 rounding.
+broadcasts over leading batch dimensions (the batched path's lane axis)
+and keeps the JAX package's arithmetic order, so results agree to float32
+rounding.
 """
 
 from __future__ import annotations
@@ -27,8 +28,10 @@ class Pose(NamedTuple):
 
 
 def pose_where(pred: torch.Tensor, a: Pose, b: Pose) -> Pose:
-    """Select pose `a` where the (scalar) predicate holds, else `b`."""
-    return Pose(torch.where(pred, a.t, b.t), torch.where(pred, a.q, b.q))
+    """Select pose `a` where the predicate holds, else `b`: one predicate
+    per pose (a scalar, or (B,) over a lane axis)."""
+    p = pred[..., None]
+    return Pose(torch.where(p, a.t, b.t), torch.where(p, a.q, b.q))
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -46,10 +49,11 @@ def norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
 def rot_pts(pts: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """pts @ R.T as element-wise float32 multiply-adds, never a matmul
     (the JAX package's `_rot_pts`: a TPU matmul rounds to bf16, and a
-    Hopper one may take TF32)."""
+    Hopper one may take TF32). pts (..., N, 3) with R (3, 3), or one R
+    per lane, (B, 3, 3) with pts (B, N, 3)."""
     return torch.stack(
-        [pts[..., 0] * R[i, 0] + pts[..., 1] * R[i, 1] + pts[..., 2] * R[i, 2]
-         for i in range(3)], dim=-1)
+        [pts[..., 0] * R[..., i, 0, None] + pts[..., 1] * R[..., i, 1, None]
+         + pts[..., 2] * R[..., i, 2, None] for i in range(3)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Profile the PyTorch/CUDA port's main path on one GPU.
 
-    python3 profile_torch.py [--scans N] [--out FILE] [--reference-parity]
+    python3 profile_torch.py [--scans N] [--out FILE] [--reference-parity] [--batch B]
 
 Runs the 40-scan bench drive (seed 42, 5 m/s, full `OdometryConfig()`, or
 `reference_parity(OdometryConfig())` with --reference-parity, where ICP
@@ -14,7 +14,11 @@ time per scan, the device's busy time and idle share over the profiled
 window, device kernel launches per scan, each of the port's kernels' launches
 per scan and device time per launch, and the operations with the most
 device time; with --out, writes the full tables (by device and by host
-time) to FILE. Exits non-zero without a CUDA device.
+time) to FILE. With --batch B, the same for the batched step
+(parallel/batched.py) with the drive on each of B lanes (as bench.py and
+bench_cuda.py broadcast it): every number is then per step of B scans, and
+"rounds" are batched rounds (each step's slowest lane). Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ def main() -> int:
     ap.add_argument("--out", help="file for the full profiler tables")
     ap.add_argument("--reference-parity", action="store_true",
                     help="profile the strict reference path (exact-search ICP)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="profile the batched step at B lanes (default: one sequence)")
     args = ap.parse_args()
     n_prof = args.scans
     import torch
@@ -66,27 +72,48 @@ def main() -> int:
     from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
     from lidar_odometry_demo_tpu_torch.ops import classifier, icp, preprocess
     from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
-    from lidar_odometry_demo_tpu_torch.ops.cloud import scan_from_numpy
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan, scan_from_numpy
+    from lidar_odometry_demo_tpu_torch.parallel import batched
     from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     cfg = reference_parity(OdometryConfig()) if args.reference_parity else OdometryConfig()
+    B = args.batch
+    unit = f"step of {B}" if B else "scan"
     print(f"card: {card}; config: "
-          f"{'reference_parity' if args.reference_parity else 'default'}")
+          f"{'reference_parity' if args.reference_parity else 'default'}"
+          + (f"; batched step, B = {B} lanes of the drive" if B else ""))
     dev = torch.device("cuda")
     drive = simulate_sequence(num_scans=40, width=cfg.scan_width, seed=42,
                               speed=5.0, yaw_rate=0.08)
     scans = [scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
                              cfg.max_raw_points, dev) for s in drive.scans]
-    warm = LidarOdometry(cfg, device=dev)
+    if B:
+        scans = [LidarScan(*(x[None].expand(B, *x.shape).contiguous() for x in scan))
+                 for scan in scans]
+
+    def stepper():
+        """A fresh pipeline's step(scan) -> its ICP rounds."""
+        if not B:
+            odo = LidarOdometry(cfg, device=dev)
+            return lambda scan: int(odo.process_scan(scan).icp_iterations)
+        step = batched.make_batched_step(cfg)
+        state = [batched.init_batched_state(cfg, B, dev)]
+
+        def run(scan):
+            state[0], diag = step(state[0], scan)
+            return int(diag.icp_iterations.max())
+        return run
+
+    warm = stepper()
     for scan in scans:
-        warm.process_scan(scan)
+        warm(scan)
 
     # stage wall times: the pipeline looks these functions up at call time
     # (make_align when the step is built), so wrapping the module attributes
-    # times every call of the next LidarOdometry
+    # times every call of the next pipeline stepper() builds
     stage_s = collections.Counter()
     patched = [(preprocess, "deskew"), (classifier, "classify"), (vm, "downsample"),
                (vm, "map_update")]
@@ -95,13 +122,13 @@ def main() -> int:
     for mod, name in patched:
         setattr(mod, name, stage_timer(stage_s, name, originals[(mod, name)]))
     icp.make_align = lambda c: stage_timer(stage_s, "icp", make_align(c))
-    staged = LidarOdometry(cfg, device=dev)
-    staged.process_scan(scans[0])  # the first scan skips ICP
+    staged = stepper()
+    staged(scans[0])  # the first scan skips ICP
     stage_s.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for scan in scans[1:]:
-        staged.process_scan(scan)
+        staged(scan)
     torch.cuda.synchronize()
     staged_wall = time.perf_counter() - t0
     for (mod, name), fn in originals.items():
@@ -109,13 +136,13 @@ def main() -> int:
     icp.make_align = make_align
     n_staged = len(scans) - 1
     parts = ", ".join(f"{k} {1e3 * v / n_staged:.3f}" for k, v in stage_s.items())
-    print(f"stages (ms/scan, synchronised, scans 1..39): {parts}; rest "
+    print(f"stages (ms per {unit}, synchronised, scans 1..39): {parts}; rest "
           f"{1e3 * (staged_wall - sum(stage_s.values())) / n_staged:.3f}; "
           f"total {1e3 * staged_wall / n_staged:.3f}")
 
-    odo = LidarOdometry(cfg, device=dev)
+    step = stepper()
     for scan in scans[:30]:
-        odo.process_scan(scan)
+        step(scan)
     torch.cuda.synchronize()
 
     window = scans[30:30 + n_prof]
@@ -123,7 +150,7 @@ def main() -> int:
         t0 = time.perf_counter()
         rounds = 0
         for scan in window:
-            rounds += int(odo.process_scan(scan).icp_iterations)
+            rounds += step(scan)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -133,15 +160,16 @@ def main() -> int:
     device_us = sum(e.self_device_time_total for e in device)
     launches = sum(e.count for e in device)
     n = len(window)
-    print(f"profile: {n} scans, {rounds} ICP rounds, wall {1e3 * wall / n:.3f} ms/scan "
+    print(f"profile: {n} {unit}s, {rounds} ICP rounds, wall {1e3 * wall / n:.3f} ms per {unit} "
           f"(with the profiler on)")
-    print(f"profile: device busy {device_us / 1e3 / n:.3f} ms/scan, idle share "
-          f"{1 - device_us / 1e6 / wall:.4f}, {launches / n:.1f} device kernel launches/scan")
+    print(f"profile: device busy {device_us / 1e3 / n:.3f} ms per {unit}, idle share "
+          f"{1 - device_us / 1e6 / wall:.4f}, {launches / n:.1f} device kernel launches per "
+          f"{unit}")
     # the port's own kernels (K1, K2, K3's three modes), per launch
     for e in device:
         name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
         if name in KERNELS:
-            print(f"profile: {name}: {e.count / n:.1f} launches/scan, "
+            print(f"profile: {name}: {e.count / n:.1f} launches per {unit}, "
                   f"{e.self_device_time_total / e.count / 1e3:.4f} ms per launch")
     table = events.table(sort_by="self_device_time_total", row_limit=40)
     print("\n".join(table.splitlines()[:20]))
@@ -149,7 +177,7 @@ def main() -> int:
         return 0
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        f.write(f"card: {card}; reference_parity: {args.reference_parity}\n")
+        f.write(f"card: {card}; reference_parity: {args.reference_parity}; batch: {B}\n")
         f.write(events.table(sort_by="self_device_time_total", row_limit=80))
         f.write("\n\nby host time:\n")
         f.write(events.table(sort_by="self_cpu_time_total", row_limit=40))

@@ -17,6 +17,7 @@ import torch
 import yaml
 
 from lidar_odometry_demo_tpu import cli as jcli
+from lidar_odometry_demo_tpu.config import TINY as JTINY
 from lidar_odometry_demo_tpu.io import pcd as jpcd
 from lidar_odometry_demo_tpu.models import presets as jpresets
 from lidar_odometry_demo_tpu_torch import cli
@@ -147,3 +148,49 @@ def test_profiling_helpers_on_cpu(tmp_path):
         with profiling.annotate("region"):
             torch.ones(8).sum()
     assert "region" in (tmp_path / "tr" / "trace.json").read_text()
+
+
+def test_cli_fleet_matches_the_jax_cli(tmp_path, capsys, monkeypatch, tiny_yaml):
+    """`fleet --batch 2 --scans 3` under TINY: one TUM per lane within 1e-4
+    of the JAX CLI's (which shards the two lanes over its device mesh), and
+    the same stderr lines."""
+    monkeypatch.setattr(jcli, "_load_config", lambda args: JTINY)
+    fleet = ["fleet", "--batch", "2", "--scans", "3"]
+    jcli.main([*fleet, "--out-prefix", str(tmp_path / "j_")])
+    jerr = capsys.readouterr().err
+    cli.main(["--config", tiny_yaml, *fleet, "--device", "cpu",
+              "--out-prefix", str(tmp_path / "t_")])
+    captured = capsys.readouterr()
+    assert "mesh: dp=1 x sp=1 over 1 devices" in captured.err
+    assert "fleet: 2 sequences x 3 scans in " in captured.err and "mesh: " in jerr
+    for b in range(2):
+        assert f"lane {b}: {tmp_path / f't_{b}.tum'}  aligned ATE " in captured.out
+        stamps, t, q = read_tum(str(tmp_path / f"t_{b}.tum"))
+        jstamps, jt, jq = read_tum(str(tmp_path / f"j_{b}.tum"))
+        assert t.shape == (3, 3) and np.array_equal(stamps, jstamps)
+        np.testing.assert_allclose(t, jt, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(q, jq, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--sp", "2"]])
+def test_cli_fleet_mesh_flags_raise(flag):
+    """The sharded modes (a dp x sp mesh) are not ported: asking for one
+    raises and names them."""
+    with pytest.raises(SystemExit, match="sharded modes"):
+        cli.main(["fleet", "--batch", "2", "--scans", "1", "--device", "cpu", *flag])
+
+
+def test_bench_cuda_without_a_card_exits_non_zero():
+    """bench_cuda.py prints no JSON line and exits non-zero without CUDA."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(repo / "bench_cuda.py")], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert not [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    assert "no CUDA device" in proc.stderr

@@ -429,3 +429,133 @@ def test_lookup_wrappers_check_their_inputs_on_card(rng):
     meta = torch.zeros(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         group_lookup(meta, meta)
+
+
+# ---------------------------------------------------------------------------
+# the lane axis: B sequences in one launch
+# ---------------------------------------------------------------------------
+
+def _lanes_of(trees):
+    """Stack B single-lane argument lists (tensors, tuples, CandidateSets)
+    into one with a leading lane axis."""
+    def stack(xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs).contiguous()
+        items = [stack([x[i] for x in xs]) for i in range(len(xs[0]))]
+        return type(xs[0])(*items) if hasattr(xs[0], "_fields") else tuple(items)
+
+    return [stack([t[i] for t in trees]) for i in range(len(trees[0]))]
+
+
+def _lane(x, b):
+    if isinstance(x, torch.Tensor):
+        return x[b]
+    items = [_lane(v, b) for v in x]
+    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+
+def test_match_correspondences_over_lanes(rng):
+    """K1 at B = 3: each lane bitwise its B = 1 launch, and the plain
+    version's index and valid, floats within 1e-6."""
+    _need_card()
+    per = [_fused(rng, 2048, 20) for _ in range(3)]
+    args = _lanes_of([p[0] for p in per])
+    tab = torch.stack([p[1] for p in per])
+    nrm = torch.stack([p[2] for p in per])
+    before = match_rows.launches
+    got = match_correspondences(*args, tab, nrm, max_d2=0.09, max_points=20)
+    assert match_rows.launches == before + 1
+    ref = match_correspondences_plain(*args, nrm, max_d2=0.09, max_points=20)
+    assert torch.equal(got.index, ref.index) and torch.equal(got.valid, ref.valid)
+    for f in ("plane_origin", "plane_normal", "d2"):
+        assert torch.allclose(getattr(got, f), getattr(ref, f), atol=1e-6, rtol=0), f
+    for b, (a1, t1, n1) in enumerate(per):
+        one = match_correspondences(*a1, t1, n1, max_d2=0.09, max_points=20)
+        assert all(torch.equal(x[b], y) for x, y in zip(got, one))
+
+
+def test_gn_step_over_lanes_with_an_inactive_lane(rng):
+    """K2 at B = 3 with lane 1 inactive: the active lanes bitwise their
+    B = 1 launches, the inactive lane's pose and step norm unchanged."""
+    _need_card()
+    cfg = OdometryConfig()
+    per = [_step_inputs(rng, 8192) for _ in range(3)]
+    corr = Correspondence(*(torch.stack(xs) for xs in zip(*[p[0] for p in per])))
+    pose = Pose(torch.stack([p[1].t for p in per]), torch.stack([p[1].q for p in per]))
+    guess_t = torch.stack([p[2] for p in per])
+    norm_in = torch.tensor([0.5, 0.25, 0.125], device="cuda")
+    active = torch.tensor([True, False, True], device="cuda")
+    work = GnWork.empty(1, "cuda", (3,))
+    new, norm, H, b = gn_step(corr, pose, guess_t, cfg, work=work, step_norm=norm_in,
+                              active=active)
+    assert torch.equal(new.t[1], pose.t[1]) and torch.equal(new.q[1], pose.q[1])
+    assert float(norm[1]) == 0.25
+    plain = gn_step_plain(corr, pose, guess_t, cfg, step_norm=norm_in, active=active)
+    assert torch.allclose(new.t, plain[0].t, atol=1e-6, rtol=0)
+    assert torch.allclose(new.q, plain[0].q, atol=1e-6, rtol=0)
+    for lane in (0, 2):
+        one = _snapshot(gn_step(*per[lane], cfg))
+        assert all(torch.equal(x, y) for x, y in
+                   zip([new.t[lane], new.q[lane], norm[lane], H[lane], b[lane]], one))
+
+
+def test_lookups_over_lanes(rng):
+    """K3's neighbourhood and group lookups at B = 3 (three maps built on
+    the card): bitwise their plain versions and their B = 1 launches."""
+    _need_card()
+    built = [_card_map(4096, 300, seed=s) for s in (4, 5, 6)]
+    maps = [m for m, _ in built]
+    per = [_lookup_args(rng, m, x, 1024, 0.1 * i) for i, (m, x) in enumerate(built)]
+    args = _lanes_of(per)
+    RW, _, _ = _lanes(20)
+    before = search_sorted.launches
+    got = neighborhood_lookup(*args, voxel_size=0.2, row_width=RW)
+    assert search_sorted.launches == before + 1
+    ref = neighborhood_lookup_plain(*args, voxel_size=0.2, row_width=RW)
+    for b in range(3):
+        _assert_same_candidates(_lane(got, b), _lane(ref, b))
+        _assert_same_candidates(_lane(got, b),
+                                neighborhood_lookup(*per[b], voxel_size=0.2, row_width=RW))
+    keys = args[1]
+    q = torch.sort(torch.stack([m.keys[torch.randperm(4096, device="cuda")[:512]]
+                                for m in maps]), dim=-1).values
+    pos_c, found = group_lookup(keys, q)
+    ref = group_lookup_plain(keys, q)
+    assert torch.equal(pos_c, ref[0]) and torch.equal(found, ref[1])
+    for b in range(3):
+        p1, f1 = group_lookup(keys[b], q[b])
+        assert torch.equal(pos_c[b], p1) and torch.equal(found[b], f1)
+
+
+def test_tiny_fleet_on_card_matches_cpu():
+    """The batched runner at B = 3 (two drives, the first twice) on the card
+    against the same on the CPU; launches: K1 once per batched round (the
+    slowest lane's), K2 four times that, K3 once per ICP step and once per
+    map_update step."""
+    _need_card()
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
+    from lidar_odometry_demo_tpu_torch.parallel import batched
+
+    drives = [simulate_sequence(num_scans=5, width=TINY.scan_width, seed=s, speed=2.0,
+                                yaw_rate=0.05, ramp_time=0.0) for s in (3, 2, 3)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        lanes = [[scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
+                                  TINY.max_raw_points, dev) for s in d.scans] for d in drives]
+        scans_b = LidarScan(*(torch.stack([torch.stack([getattr(lane[i], f) for lane in lanes])
+                                           for i in range(5)]) for f in LidarScan._fields))
+        before = (match_rows.launches, jtwj_accumulate.launches, search_sorted.launches)
+        state, diag = batched.make_batched_sequence_runner(TINY)(
+            batched.init_batched_state(TINY, 3, dev), scans_b)
+        launched = (match_rows.launches - before[0], jtwj_accumulate.launches - before[1],
+                    search_sorted.launches - before[2])
+        runs[dev] = (state, diag, launched)
+    (s_cpu, d_cpu, _), (s_gpu, d_gpu, launched) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(d_gpu.pose.t.cpu().numpy(), d_cpu.pose.t.numpy(), atol=1e-4, rtol=0)
+    assert torch.equal(d_gpu.icp_iterations.cpu(), d_cpu.icp_iterations)
+    assert torch.equal(d_gpu.pose.t[:, 0], d_gpu.pose.t[:, 2])
+    assert torch.equal(s_gpu.keyframe.tab[0], s_gpu.keyframe.tab[2])
+    iters = d_gpu.icp_iterations.cpu().numpy()
+    rounds = int(iters.max(axis=1).sum())
+    assert launched == (rounds, TINY.icp_inner_iterations * rounds,
+                        int((iters.max(axis=1) > 0).sum()) + 5)
