@@ -70,9 +70,35 @@ Phases, each of which raises (non-zero exit) on failure:
    inactive) within phase 2's tolerances, and all three bitwise against
    B = 1 launches lane by lane; per-launch times at B = 8 with their bounds.
    Last, `fleet --batch 2 --scans 5` in-process (TUMs under
-   chiprun_out/cli_smoke/).
+   chiprun_out/cli_smoke/);
+8. live ingestion at full width: the native library built from
+   native/lidar_native.cpp (its build time printed), the bench drive
+   encoded as 3,000 VLP16 data packets (75 per scan), sent by a spawned
+   process over loopback UDP at the sensor's 750 packets/s to `udp_packets`
+   (the sender starts once the listener has bound), cut into revolutions,
+   decoded and run through `run_live` and `LidarOdometry(OdometryConfig(),
+   "cuda")` with the last revolution flushed. It fails unless the packets
+   received are the packets sent, each revolution holds its encoded scan's
+   packets within one (and no packet no scan encoded),
+   at least 40 scans are processed, the trajectory is within 1e-5 m / 1e-6
+   of the socket-free run over the same packets, within 0.05 m of phase 3's
+   and its aligned ATE under 0.03 m, no scan diverged and the launches
+   follow phase 3's schedule; prints each scan's ms split into decode,
+   upload, the step's host call and the pose read, the step's CUDA event
+   time, and how many scans took over the sensor's 100 ms. Then `live
+   --max-scans 5 --idle-timeout 3` in-process (TUM of 5 monotone rows under
+   chiprun_out/cli_smoke/);
+9. the pose graph (`refine`) on the card against the same on CPU tensors in
+   this process (first system within 1e-5 of its scale, refined poses
+   within 5e-3 of the correction's scale or 4 float32 ulps, two card runs
+   printed side by side): phase 3's 40 poses (the odometry chain, a fixed
+   point: poses move under 1e-3 m), direct and Schur; a 32-pose noisy loop
+   with a closure, direct and Schur (RMS against ground truth halved, pose
+   0 within 1e-3 m); the segment Schur solver at P = 256, stride 8; the
+   CLI's `refine` (and `--schur`) on phase 3's TUM. No kernel launches.
 
 Prints a `kernels` JSON line (each kernel with its launches on every path,
+`launches_live` the live phase's,
 its times, bound and plain time at the main path's shapes and at B = 8,
 and `redesigned`: the PR that last redesigned it, or null), the card's name
 and power limit, then as its last line
@@ -445,7 +471,8 @@ def bench_drive(device) -> dict:
     g0_R = Rotation.from_quat([g0[1], g0[2], g0[3], g0[0]])
     _, ref_t, _ = read_tum(os.path.join(REPO, "benchmarks", "BASELINE_REF.tum"))
     return dict(scans=scans, gt_rel=g0_R.inv().apply(drive.gt_t - drive.gt_t[0]),
-                ref_t=ref_t)
+                ref_t=ref_t, range_images=[(s["range_image"], s["scan_start"])
+                                           for s in drive.scans])
 
 
 def drive_path(name: str, cfg, bench: dict, device, *, ate_gt=None, ate_ref_max=None):
@@ -1180,6 +1207,512 @@ def run_fleet_cli() -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 8: live ingestion (UDP packets -> revolutions -> native decode -> odometry)
+# --------------------------------------------------------------------------
+
+PACKET_RATE = 750.0   # the VLP16's own packet rate: 75 packets per scan, 10 scans/s
+
+
+def encode_packets(bench: dict) -> list[list[bytes]]:
+    """The bench drive's scans as VLP16 data packets, a list per scan."""
+    from lidar_odometry_demo_tpu_torch.io.live import PACKET_SIZE
+    from lidar_odometry_demo_tpu_torch.io.simulator import encode_vlp16_packets
+
+    out = []
+    for range_image, scan_start in bench["range_images"]:
+        log_ = encode_vlp16_packets(range_image, scan_start)
+        out.append([log_[i:i + PACKET_SIZE] for i in range(0, len(log_), PACKET_SIZE)])
+    return out
+
+
+def free_udp_port() -> int:
+    import socket
+
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    return port
+
+
+def _send(packets: list, port: int, ready, started, sent, rate: float) -> None:
+    """Set `ready`, wait for `started`, then send `packets` to
+    127.0.0.1:port paced at `rate` packets per second, counting them in
+    `sent.value`."""
+    import socket
+
+    ready.set()
+    if not started.wait(60.0):
+        return
+    out = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    t0 = time.perf_counter()
+    try:
+        for i, p in enumerate(packets):
+            delay = t0 + i / rate - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            out.sendto(p, ("127.0.0.1", port))
+            with sent.get_lock():
+                sent.value += 1
+    except OSError:
+        pass  # the listener has gone (the CLI's --max-scans)
+    finally:
+        out.close()
+
+
+def start_sender(packets: list, port: int, rate: float = PACKET_RATE, process: bool = True):
+    """Start a sender of `packets` to 127.0.0.1:port that waits for the
+    returned `started` event (the listener sets it after its bind). With
+    `process` the sender is a spawned process, which shares no interpreter
+    lock with the listener; else a thread. Returns once the sender is
+    running (a spawned interpreter takes a while to start, longer than the
+    listener's silence timeout may allow): (worker, started, sent),
+    `sent.value` the packets sent so far."""
+    import multiprocessing
+    import threading
+
+    ctx = multiprocessing.get_context("spawn")
+    ready, started, sent = ctx.Event(), ctx.Event(), ctx.Value("i", 0)
+    worker = (ctx.Process if process else threading.Thread)(
+        target=_send, args=(packets, port, ready, started, sent, rate), daemon=True)
+    worker.start()
+    if not ready.wait(60.0):
+        stop_sender(worker, 0.0)
+    return worker, started, sent
+
+
+def stop_sender(worker, timeout: float = 30.0) -> None:
+    """Join the sender; one still running after `timeout` is ended and
+    reported."""
+    worker.join(timeout)
+    if worker.is_alive():
+        if hasattr(worker, "terminate"):
+            worker.terminate()
+            worker.join(5.0)
+        raise AssertionError("live: the sender did not finish")
+
+
+class _TimedOdometry:
+    """LidarOdometry with each live scan's host clock read at the decode's
+    start and end (`decoded`, set by the timed decoder), at process_cloud's
+    start, after the upload (scan_from_numpy), after the step's host call
+    returns and after the pose read, and CUDA events around the step."""
+
+    def __init__(self, odo):
+        self.odo = odo
+        self.decoded = (0.0, 0.0)
+        self.marks: list[list[float]] = []
+        self.events: list = []
+
+    def process_cloud(self, xyz, intensity, ring, t):
+        import torch
+
+        from lidar_odometry_demo_tpu_torch.ops.cloud import scan_from_numpy
+
+        marks = [*self.decoded, time.perf_counter()]
+        scan = scan_from_numpy(xyz, intensity, ring, t, self.odo.cfg.max_raw_points,
+                               self.odo.device)
+        marks.append(time.perf_counter())
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        diag = self.odo.process_scan(scan)
+        ev[1].record()
+        marks.append(time.perf_counter())
+        self.marks.append(marks)
+        self.events.append(ev)
+        return diag
+
+    def get_current_pose(self):
+        out = self.odo.get_current_pose()
+        self.marks[-1].append(time.perf_counter())
+        return out
+
+
+def check_revolutions(received: list, sent: list, per_scan: list) -> list:
+    """Check that `received` holds exactly the packets sent (as a multiset:
+    loopback UDP may reorder, which the assembler tolerates), then cut it
+    into revolutions as the listener did and check that revolution k holds
+    scan k's packets, give or take the one packet at the cut
+    (test_scan_assembler_cuts_revolutions' allowance), and no packet that
+    no scan encoded. Returns the revolutions' packet counts."""
+    from lidar_odometry_demo_tpu_torch.io.live import PACKET_SIZE, scans_from_packet_stream
+
+    if sorted(received) != sorted(sent):
+        raise AssertionError("live: the packets received are not the packets sent")
+    owner = {p: k for k, scan in enumerate(per_scan) for p in scan}
+    if len(owner) != sum(len(s) for s in per_scan):
+        raise AssertionError("live: two encoded packets are byte-identical")
+    sizes = []
+    for k, rev in enumerate(scans_from_packet_stream(iter(received), flush_partial=True)):
+        owners = [owner.get(rev[i:i + PACKET_SIZE], -1)
+                  for i in range(0, len(rev), PACKET_SIZE)]
+        own = sum(o == k for o in owners)
+        others = [o for o in owners if o != k]
+        if (k >= len(per_scan) or own < len(per_scan[k]) - 1 or len(others) > 1
+                or any(o == -1 or abs(o - k) != 1 for o in others)):
+            raise AssertionError(f"live: revolution {k} holds packets of scans "
+                                 f"{sorted(set(owners))} ({own} of its own)")
+        sizes.append(len(owners))
+    return sizes
+
+
+def run_live_path(bench: dict, main_diags: list, main_ms: float, device) -> dict:
+    """Phase 8: the bench drive as VLP16 packets, sent by a spawned process
+    over loopback UDP at the sensor's rate to `udp_packets`, through
+    `run_live` and `LidarOdometry(OdometryConfig(), device="cuda")`, with
+    every launch count set to 0 just before and read just after. Checks the
+    packets received against those sent, the revolutions, at least 40
+    scans, the trajectory against the socket-free run over the same packets
+    (1e-5 m / 1e-6), against the main path (0.05 m, tests/test_live.py's
+    bar) and against ground truth (aligned ATE 0.03 m), no divergence and
+    the main path's launch schedule. Prints each scan's time split into
+    decode, upload, the step's host call, the pose read and the step's CUDA
+    event time, beside the main path's `main_ms`."""
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.io import live, native
+    from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
+    from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
+
+    cfg = OdometryConfig()
+    native._load()
+    log(f"live: native library {native.library_path().name} "
+        + (f"built from native/lidar_native.cpp in {native.build_seconds:.2f} s"
+           if native.build_seconds is not None else "reused (already built)"))
+    t0 = time.perf_counter()
+    per_scan = encode_packets(bench)
+    sent_packets = [p for scan in per_scan for p in scan]
+    log(f"live: encoded {len(per_scan)} scans into {len(sent_packets)} packets "
+        f"({sorted(set(len(s) for s in per_scan))} per scan) in {time.perf_counter() - t0:.1f} s")
+
+    port = free_udp_port()
+    sender, started, sent = start_sender(sent_packets, port)
+    received = []
+
+    def packets():
+        for p in live.udp_packets("127.0.0.1", port, timeout_s=1.0,
+                                  stop=lambda: started.set() or False):
+            received.append(p)
+            yield p
+
+    odo = _TimedOdometry(LidarOdometry(cfg, device=device))
+    ts, diags = [], []
+    decode = native.decode_vlp16_packets
+
+    def timed_decode(*args, **kwargs):
+        t1 = time.perf_counter()
+        out = decode(*args, **kwargs)
+        odo.decoded = (t1, time.perf_counter())
+        return out
+
+    def on_scan(i, t, diag):
+        ts.append(t)
+        diags.append(diag)
+
+    zero_counts()
+    native.decode_vlp16_packets = timed_decode
+    t0 = time.perf_counter()
+    try:
+        n = live.run_live(odo, packets(), on_scan=on_scan, flush_partial=True)
+    finally:
+        native.decode_vlp16_packets = decode
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    stop_sender(sender)
+
+    # per scan: decode, upload, the step's host call, the pose read, the
+    # whole (decode start to pose read) and the step's device time
+    marks = np.array(odo.marks)
+    dec_a, _, upload, step_host, pose_read = (1e3 * np.diff(marks, axis=1)).T
+    total = 1e3 * (marks[:, -1] - marks[:, 0])
+    step_dev = np.array([a.elapsed_time(b) for a, b in odo.events])
+    med = lambda x: float(np.median(x))  # noqa: E731
+    log(f"live: sent {sent.value} / received {len(received)} packets at {PACKET_RATE:.0f} "
+        f"packets/s (sender in its own process), {n} scans in {wall:.1f} s")
+    log(f"live: ms per scan, median (max): decode {med(dec_a):.3f} ({dec_a.max():.3f}), upload "
+        f"{med(upload):.3f} ({upload.max():.3f}), step host call {med(step_host):.3f} "
+        f"({step_host.max():.3f}), pose read {med(pose_read):.3f} ({pose_read.max():.3f}); "
+        f"decode start to pose read {med(total):.3f} ({total.max():.3f}), first "
+        f"{total[0]:.3f}; step on the card (CUDA events) {med(step_dev):.3f} "
+        f"({step_dev.max():.3f}) against the main path's {main_ms:.3f} per scan back to back; "
+        f"{int(np.sum(total > 100.0))} of {n} scans over the sensor's 100 ms period")
+    log(f"live: per-scan ms decode start to pose read {[round(float(x), 3) for x in total]}")
+    log(f"live: per-scan step ms on the card {[round(float(x), 3) for x in step_dev]}")
+    if sent.value != len(sent_packets) or len(received) != len(sent_packets):
+        raise AssertionError(f"live: sent {sent.value} of {len(sent_packets)} packets, "
+                             f"received {len(received)}: the listener fell behind")
+    in_order = received == sent_packets
+    sizes = check_revolutions(received, sent_packets, per_scan)
+    log(f"live: {len(sizes)} revolutions of {sorted(set(sizes))} packets, each its encoded "
+        f"scan's within one; packets received in the order sent: {in_order}")
+    if n < len(per_scan):
+        raise AssertionError(f"live: {n} scans processed, fewer than {len(per_scan)}")
+
+    est = np.stack(ts)
+    q_live = np.stack([d.pose.q.cpu().numpy() for d in diags])
+    iters = np.array([int(d.icp_iterations) for d in diags])
+    diverged = int(sum(bool(d.diverged) for d in diags))
+
+    # the same packets, no socket
+    free = LidarOdometry(cfg, device=device)
+    free_t, free_q = [], []
+    run_free = live.run_live(free, iter(received), flush_partial=True,
+                             on_scan=lambda i, t, d: (free_t.append(t),
+                                                      free_q.append(d.pose.q.cpu().numpy())))
+    d_free_t = float(np.abs(est - np.stack(free_t)).max()) if run_free == n else float("inf")
+    d_free_q = float(np.abs(q_live - np.stack(free_q)).max()) if run_free == n else float("inf")
+    main_t = np.stack([d.pose.t.cpu().numpy() for d in main_diags])
+    m = min(len(main_t), n)
+    d_main = float(np.linalg.norm(est[:m] - main_t[:m], axis=1).max())
+    k = min(n, len(bench["gt_rel"]))
+    ate = ate_rmse(est[:k], bench["gt_rel"][:k], align=True)
+    rounds = int(iters.sum())
+    want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
+            "search_sorted": int(np.sum(iters > 0)) + n}
+    log(f"live: {d_free_t:.3g} m / {d_free_q:.3g} from the socket-free run over the same "
+        f"packets, {d_main:.5f} m from the main path (phase 3), aligned ATE {ate:.5f} m vs "
+        f"ground truth, diverged {diverged}, mean ICP rounds {rounds / max(n - 1, 1):.2f}, "
+        f"launches {launches}")
+    if d_free_t > 1e-5 or d_free_q > 1e-6:
+        raise AssertionError(f"live: {d_free_t} m / {d_free_q} from the socket-free run")
+    if d_main > 0.05:
+        raise AssertionError(f"live: {d_main} m from the main path's trajectory exceeds 0.05 m")
+    if ate > 0.03:
+        raise AssertionError(f"live: aligned ATE {ate:.4f} m exceeds 0.03 m")
+    if diverged:
+        raise AssertionError(f"live: {diverged} scans diverged")
+    if launches != want:
+        raise AssertionError(f"live: launches {launches} != the main path's schedule {want}")
+    return dict(launches=launches, total_ms=total, step_ms=step_dev, decode_ms=dec_a,
+                packets_sent=sent.value, packets_received=len(received), scans=n, ate=ate,
+                d_main=d_main, d_free=d_free_t)
+
+
+def run_live_cli(bench: dict) -> dict:
+    """`live --max-scans 5 --idle-timeout 3` in-process, fed the bench
+    drive's first seven scans over loopback UDP; TUM under
+    chiprun_out/cli_smoke/."""
+    from lidar_odometry_demo_tpu_torch import cli
+    from lidar_odometry_demo_tpu_torch.io import live
+    from lidar_odometry_demo_tpu_torch.io.trajectory import read_tum
+
+    out_dir = os.path.join(REPO, "chiprun_out", "cli_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    tum = os.path.join(out_dir, "live.tum")
+    if os.path.exists(tum):
+        os.remove(tum)
+    packets = [p for scan in encode_packets(dict(range_images=bench["range_images"][:7]))
+               for p in scan]
+    port = free_udp_port()
+    sender, started, _ = start_sender(packets, port)
+    bound = live.udp_packets
+    # the listener releases the sender once bound (its first stop() call)
+    live.udp_packets = lambda *a, **kw: bound(*a, stop=lambda: started.set() or False, **kw)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["live", "--host", "127.0.0.1", "--port", str(port), "--max-scans", "5",
+                  "--idle-timeout", "3", "--out", tum, "--quiet"])
+    finally:
+        live.udp_packets = bound
+    launches = read_counts()
+    stop_sender(sender)
+    stamps, t, _ = read_tum(tum)
+    log(f"cli: live --max-scans 5 in {time.perf_counter() - t0:.1f} s, {len(stamps)} TUM rows, "
+        f"launches {launches}")
+    if t.shape != (5, 3) or not np.all(np.isfinite(t)) or not np.all(np.diff(stamps) > 0):
+        raise AssertionError(f"cli live: the TUM must hold 5 monotone rows: {stamps}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"cli live: a kernel was not launched: {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 9: the pose graph (`refine`)
+# --------------------------------------------------------------------------
+
+def make_noisy_loop(P_n: int = 32, drift: float = 0.03, seed: int = 0):
+    """tests/test_pose_graph.py's loop, through the port's se3 on the CPU: a
+    circle of radius 10 m returning to its start; odometry is the true
+    relative poses with noise, integrated. Returns (gt_t, gt_q, est_t,
+    est_q) as numpy and closure(i, j), the true relative pose i -> j."""
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from lidar_odometry_demo_tpu_torch.ops import se3
+
+    rng = np.random.default_rng(seed)
+    angles = np.linspace(0, 2 * np.pi, P_n, endpoint=False)
+    gt_t = np.stack([10.0 * np.cos(angles), 10.0 * np.sin(angles), np.zeros(P_n)], -1)
+    gt_q = np.array([Rotation.from_euler("z", a + np.pi / 2).as_quat()[[3, 0, 1, 2]]
+                     for a in angles])
+
+    def f32(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32)
+
+    def closure(i, j):
+        return se3.relative_to(se3.Pose(f32(gt_t[i]), f32(gt_q[i])),
+                               se3.Pose(f32(gt_t[j]), f32(gt_q[j])))
+
+    est_t, est_q = [gt_t[0]], [gt_q[0]]
+    for k in range(P_n - 1):
+        z = closure(k, k + 1)
+        noise_t = rng.normal(0, drift, 3).astype(np.float32)
+        noise_w = rng.normal(0, drift * 0.3, 3).astype(np.float32)
+        z = se3.Pose(z.t + f32(noise_t), se3.quat_mul(se3.quat_exp(f32(noise_w)), z.q))
+        nxt = se3.compose(se3.Pose(f32(est_t[-1]), f32(est_q[-1])), z)
+        est_t.append(nxt.t.numpy())
+        est_q.append(nxt.q.numpy())
+    return gt_t, gt_q, np.asarray(est_t), np.asarray(est_q), closure
+
+
+def _edge_scale(x: np.ndarray) -> float:
+    """The largest entry of a system array, leaving out H's gauge prior."""
+    x = np.abs(x).copy()
+    if x.ndim == 4:  # dense H (P, P, 6, 6): pose 0's block holds the 1e6 prior
+        x[0, 0] = 0.0
+    return max(float(x.max()), 1.0)
+
+
+def refine_case(name: str, est_t, est_q, closures, solver: str, device) -> dict:
+    """One refinement (10 Gauss-Newton iterations) on the card and on CPU
+    tensors in this process: the first system (H and b, or the chain
+    system) within 1e-5 of its scale, the refined poses within 5e-3 of the
+    correction's scale or 4 float32 ulps of the coordinates, whichever is
+    larger; a second card run beside the first; one more iteration's time
+    split into the system's assembly and its solve. Returns the card's
+    poses and the numbers."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.parallel import pose_graph as pg
+
+    def build(g):
+        return pg.build_chain_system(g, 8) if solver == "segment" else pg.build_normal_equations(g)
+
+    def solve(system):
+        if solver == "segment":
+            return pg.solve_segment_schur(*system, stride=8)
+        if solver == "schur":
+            P = system[1].shape[0]
+            return pg.solve_schur(*system, torch.arange(P, device=system[1].device) % 4 == 0)
+        return pg.solve_direct(*system)
+
+    def sync(dev):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    out, split = {}, {}
+    for dev in (device, torch.device("cpu"), device):
+        g = pg.chain_from_odometry(est_t, est_q, closures=closures, device=dev)
+        system = build(g)
+        sync(dev)
+        t0 = time.perf_counter()
+        if solver == "segment":
+            refined = pg.refine_segment(g, stride=8, iterations=10)
+        else:
+            refined = pg.refine(g, iterations=10, use_schur=solver == "schur")
+        t, q = refined.poses.t.cpu().numpy(), refined.poses.q.cpu().numpy()
+        ms = 1e3 * (time.perf_counter() - t0)
+        key = dev.type if dev.type not in out else "cuda_again"
+        out[key] = ([x.cpu().numpy() for x in system], t, q, ms)
+        # one iteration split: the system's assembly (Jacobians included)
+        # and its solve, each followed by a synchronisation
+        sync(dev)
+        t1 = time.perf_counter()
+        system = build(g)
+        sync(dev)
+        t2 = time.perf_counter()
+        solve(system)
+        sync(dev)
+        split[key] = (1e3 * (t2 - t1), 1e3 * (time.perf_counter() - t2))
+    (sys_g, t_g, q_g, ms_g), (sys_c, t_c, q_c, ms_c) = out["cuda"], out["cpu"]
+    sys_err = max(float(np.abs(a - b).max()) / _edge_scale(b) for a, b in zip(sys_g, sys_c))
+    bad_sys = [i for i, (a, b) in enumerate(zip(sys_g, sys_c))
+               if not np.allclose(a, b, atol=1e-5 * _edge_scale(b), rtol=1e-5)]
+    step = float(np.abs(t_c - est_t).max())
+    tol_t = max(5e-3 * step, 4 * float(np.spacing(np.float32(np.abs(t_c).max()))))
+    tol_q = max(5e-3 * float(np.abs(q_c - est_q).max()), 4 * float(np.spacing(np.float32(1.0))))
+    d_t, d_q = float(np.abs(t_g - t_c).max()), float(np.abs(q_g - q_c).max())
+    again = float(max(np.abs(out["cuda_again"][1] - t_g).max(),
+                      np.abs(out["cuda_again"][2] - q_g).max()))
+    log(f"refine {name} ({solver}, P={len(est_t)}, {len(closures)} closures): card "
+        f"{ms_g:.1f} ms / CPU {ms_c:.1f} ms for 10 iterations (host clock); first system card vs "
+        f"CPU {sys_err:.3g} of its scale; poses card vs CPU {d_t:.3g} m / {d_q:.3g} (bars "
+        f"{tol_t:.3g} / {tol_q:.3g}); correction {step:.4g} m; two card runs {again:.3g} apart; "
+        f"one iteration's assembly / solve ms: card {split['cuda'][0]:.2f} / "
+        f"{split['cuda'][1]:.2f}, again {split['cuda_again'][0]:.2f} / "
+        f"{split['cuda_again'][1]:.2f}, CPU {split['cpu'][0]:.2f} / {split['cpu'][1]:.2f}")
+    if bad_sys:
+        raise AssertionError(f"refine {name}: system arrays {bad_sys} differ card vs CPU")
+    if d_t > tol_t or d_q > tol_q:
+        raise AssertionError(f"refine {name}: card vs CPU {d_t} / {d_q} over {tol_t} / {tol_q}")
+    if not (np.all(np.isfinite(t_g)) and np.all(np.isfinite(q_g))):
+        raise AssertionError(f"refine {name}: non-finite poses")
+    return dict(t=t_g, q=q_g, card_ms=ms_g, cpu_ms=ms_c, card_vs_cpu_m=d_t, correction_m=step,
+                two_card_runs=again, split_ms=split)
+
+
+def run_refine(main_diags: list, device) -> dict:
+    """Phase 9: the main path's 40 poses (its odometry chain: a fixed
+    point), a 32-pose noisy loop with a closure (direct and Schur: drift
+    halved, pose 0 held), the segment Schur solver at P = 256, stride 8,
+    each on the card against the CPU; then the CLI's `refine` on the main
+    path's TUM. No kernel launches: refine is dense float32 algebra."""
+    from lidar_odometry_demo_tpu_torch import cli
+    from lidar_odometry_demo_tpu_torch.io.trajectory import read_tum, write_tum
+
+    zero_counts()
+    est_t = np.stack([d.pose.t.cpu().numpy() for d in main_diags]).astype(np.float64)
+    est_q = np.stack([d.pose.q.cpu().numpy() for d in main_diags]).astype(np.float64)
+    results = {}
+    for solver in ("direct", "schur"):
+        r = refine_case("main path", est_t, est_q, [], solver, device)
+        moved = float(np.abs(r["t"] - est_t).max())
+        if moved > 1e-3:
+            raise AssertionError(f"refine main path ({solver}): the odometry chain is a fixed "
+                                 f"point, but poses moved {moved} m")
+        results[f"main_{solver}"] = r
+
+    def rms(t, gt):
+        return float(np.sqrt(np.mean(np.sum((t - gt) ** 2, -1))))
+
+    for P_n, drift, solver, pairs in ((32, 0.03, "direct", [(31, 0)]),
+                                      (32, 0.03, "schur", [(31, 0)]),
+                                      (256, 0.02, "segment", [(248, 0), (128, 0)])):
+        gt_t, gt_q, lt, lq, closure = make_noisy_loop(P_n, drift)
+        closures = [(i, j, closure(i, j), 1.0) for i, j in pairs]
+        r = refine_case("noisy loop", lt, lq, closures, solver, device)
+        before, after = rms(lt, gt_t), rms(r["t"], gt_t)
+        log(f"refine noisy loop ({solver}, P={P_n}): RMS vs ground truth {before:.4f} -> "
+            f"{after:.4f} m, pose 0 moved {float(np.abs(r['t'][0] - lt[0]).max()):.3g} m")
+        if not after < 0.5 * before:
+            raise AssertionError(f"refine noisy loop ({solver}): RMS {before} -> {after}, not "
+                                 f"halved")
+        if float(np.abs(r["t"][0] - lt[0]).max()) > 1e-3:
+            raise AssertionError(f"refine noisy loop ({solver}): pose 0 moved")
+        results[f"loop_{solver}"] = dict(r, rms_before=before, rms_after=after)
+
+    out_dir = os.path.join(REPO, "chiprun_out", "cli_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "main_path.tum")
+    write_tum(src, [0.1 * i for i in range(len(est_t))], est_t, est_q)
+    for flags in ([], ["--schur"]):
+        dst = os.path.join(out_dir, f"refined{'_schur' if flags else ''}.tum")
+        cli.main(["refine", src, "--out", dst, "--iterations", "5", *flags])
+        stamps, t, _ = read_tum(dst)
+        moved = float(np.abs(t - read_tum(src)[1]).max())
+        log(f"cli: refine {' '.join(flags)} on the main path's TUM: {len(stamps)} rows, moved "
+            f"{moved:.3g} m")
+        if t.shape != est_t.shape or not np.all(np.isfinite(t)) or moved > 1e-3:
+            raise AssertionError(f"cli refine {flags}: {t.shape} rows, moved {moved} m")
+    launches = read_counts()
+    log(f"refine: kernel launches {launches} (none expected: dense float32 algebra)")
+    if any(launches.values()):
+        raise AssertionError(f"refine launched kernels: {launches}")
+    results["launches"] = launches
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1211,12 +1744,17 @@ def main() -> int:
     last = type(fleet["scans"])(*(x[-1] for x in fleet["scans"]))
     fleet_numbers = check_fleet_kernels(fleet_calls(fleet["state"], last), device)
     cli_fleet = run_fleet_cli()
+    live_path = run_live_path(bench, main_diags, single_ms, device)
+    run_live_cli(bench)
+    refine = run_refine(main_diags, device)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_reference_parity"] = parity[k["name"]]
         k["launches_cli"] = cli_launches[k["name"]]
         k["launches_fleet"] = fleet["launches"][k["name"]]
         k["launches_cli_fleet"] = cli_fleet[k["name"]]
+        k["launches_live"] = live_path["launches"][k["name"]]
+        k["launches_refine"] = refine["launches"][k["name"]]
         k.update(fleet_numbers[k["name"]])
         k["kernel_ms"] = k["ms"]
     print(json.dumps({"kernels": kernels, "card": card}))

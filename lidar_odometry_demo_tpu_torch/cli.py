@@ -9,6 +9,8 @@ analogue, lidar_odometry.cpp:75), including ``map_saturated``:
   python -m lidar_odometry_demo_tpu_torch.cli sim --scans 100 --out traj.tum
   python -m lidar_odometry_demo_tpu_torch.cli pcd-dir /path/to/scans --out traj.tum
   python -m lidar_odometry_demo_tpu_torch.cli fleet --batch 8 --scans 40
+  python -m lidar_odometry_demo_tpu_torch.cli live --port 2368 --out live.tum
+  python -m lidar_odometry_demo_tpu_torch.cli refine traj.tum --out refined.tum
   python -m lidar_odometry_demo_tpu_torch.cli sim --device cpu --scans 5
 
 Runs on the card ("cuda") unless --device names another device.
@@ -190,6 +192,66 @@ def cmd_fleet(args):
         print(f"  lane {b}: {out}  aligned ATE {ate:.3f} m")
 
 
+def cmd_live(args):
+    """Online odometry from live VLP16 UDP packets, the analogue of the
+    reference's per-message ROS loop (lidar_odometry_node.cpp:45-108): one
+    JSON line per scan on stderr, the TUM rewritten every 10 scans."""
+    from lidar_odometry_demo_tpu_torch.io import live, trajectory
+    from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
+    from lidar_odometry_demo_tpu_torch.utils.profiling import ScanRateCounter
+
+    cfg = _load_config(args)
+    odo = LidarOdometry(cfg, device=args.device)
+    rate = ScanRateCounter()
+    stamps, ts, qs = [], [], []
+
+    def on_scan(i, t, diag):
+        _, q = odo.get_current_pose()
+        stamps.append(i * 0.1)
+        ts.append(t)
+        qs.append(q)
+        if not args.quiet:
+            print(json.dumps({
+                "scan": i,
+                "t": [round(float(x), 4) for x in t],
+                "scans_per_sec": round(rate.tick(), 2),
+                "icp_iterations": int(diag.icp_iterations),
+                "matches": int(diag.num_matches),
+                "diverged": bool(diag.diverged),
+                "map_voxels": int(diag.map_voxels),
+            } | ({"downsample_dropped": int(diag.num_downsample_dropped)}
+                 if diag.num_downsample_dropped is not None
+                 and int(diag.num_downsample_dropped) else {})
+              | ({"map_saturated": True}
+                 if int(diag.map_voxels) >= cfg.map_capacity else {})),
+                file=sys.stderr)
+        if args.out and (i + 1) % 10 == 0:  # incremental trajectory flush
+            trajectory.write_tum(args.out, stamps, ts, qs)
+
+    print(f"listening on udp://{args.host}:{args.port} "
+          f"(idle timeout {args.idle_timeout}s)", file=sys.stderr)
+    n = live.run_live(odo, live.udp_packets(args.host, args.port, timeout_s=args.idle_timeout),
+                      on_scan=on_scan, max_scans=args.max_scans)
+    if args.out and ts:
+        trajectory.write_tum(args.out, stamps, ts, qs)
+        print(f"wrote {args.out} ({len(ts)} poses)")
+    print(f"processed {n} scans", file=sys.stderr)
+
+
+def cmd_refine(args):
+    """Pose-graph refinement of a TUM trajectory: its odometry chain, Gauss-
+    Newton with the direct or (--schur) the Schur solver."""
+    from lidar_odometry_demo_tpu_torch.io import trajectory
+    from lidar_odometry_demo_tpu_torch.parallel import pose_graph as pg
+
+    stamps, t, q = trajectory.read_tum(args.traj)
+    g = pg.chain_from_odometry(t, q, device=args.device)
+    refined = pg.refine(g, iterations=args.iterations, use_schur=args.schur)
+    trajectory.write_tum(args.out, stamps, refined.poses.t.cpu().numpy(),
+                         refined.poses.q.cpu().numpy())
+    print(f"wrote {args.out}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="lidar_odometry_demo_tpu_torch")
     p.add_argument("--config", help="YAML config overriding OdometryConfig fields")
@@ -223,7 +285,24 @@ def main(argv=None):
     pf.add_argument("--out-prefix", default="fleet_")
     pf.set_defaults(fn=cmd_fleet)
 
-    for sp in (ps, pp, pf):
+    pl = sub.add_parser("live", help="online odometry from live VLP16 UDP packets")
+    pl.add_argument("--host", default="0.0.0.0")
+    pl.add_argument("--port", type=int, default=2368)  # VLP16 data port
+    pl.add_argument("--out", default="live_trajectory.tum")
+    pl.add_argument("--idle-timeout", type=float, default=10.0,
+                    help="stop after this many seconds without packets")
+    pl.add_argument("--max-scans", type=int, default=None)
+    pl.add_argument("--quiet", action="store_true")
+    pl.set_defaults(fn=cmd_live)
+
+    pr = sub.add_parser("refine", help="pose-graph refine a TUM trajectory")
+    pr.add_argument("traj")
+    pr.add_argument("--out", default="refined.tum")
+    pr.add_argument("--iterations", type=int, default=10)
+    pr.add_argument("--schur", action="store_true")
+    pr.set_defaults(fn=cmd_refine)
+
+    for sp in (ps, pp, pf, pl, pr):
         sp.add_argument("--device", default="cuda",
                         help='torch device to run on (default "cuda"; "cpu" on request)')
 

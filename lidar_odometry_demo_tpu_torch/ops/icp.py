@@ -159,3 +159,20 @@ def make_align(cfg: OdometryConfig):
         return IcpResult(pose, iters, step_norm, n_matches)
 
     return align
+
+
+def align(m: vm.VoxelMap, query_xyz: torch.Tensor, query_valid: torch.Tensor,
+          guess: se3.Pose, cfg: OdometryConfig) -> IcpResult:
+    """Convenience entry point: `make_align(cfg)`, built once per config."""
+    return _cached_align(cfg)(m, query_xyz, query_valid, guess)
+
+
+_ALIGN_CACHE: dict[OdometryConfig, object] = {}
+
+
+def _cached_align(cfg: OdometryConfig):
+    fn = _ALIGN_CACHE.get(cfg)
+    if fn is None:
+        fn = make_align(cfg)
+        _ALIGN_CACHE[cfg] = fn
+    return fn

@@ -54,6 +54,11 @@ def deskew(scan: LidarScan, start_pose: se3.Pose, end_pose: se3.Pose,
     return scan._replace(xyz=rotated + trans)
 
 
+def transform_scan(scan: LidarScan, pose: se3.Pose) -> LidarScan:
+    """Rigid transform (CloudTransformer::transform, cloud_transform.h:44-66)."""
+    return scan._replace(xyz=se3.transform_points(pose, scan.xyz))
+
+
 def transform_with_normals(pts: PointsWithNormals, pose: se3.Pose) -> PointsWithNormals:
     """Rigid transform rotating the normals too (one pose per lane)."""
     return pts._replace(

@@ -110,6 +110,13 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(*q.shape[:-1], 3, 3)
 
 
+def quat_from_axis_angle(axis: torch.Tensor, angle) -> torch.Tensor:
+    """Unit quaternion for a rotation of `angle` radians about unit `axis`."""
+    angle = torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    half = 0.5 * angle
+    return torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axis], dim=-1)
+
+
 def quat_exp(w: torch.Tensor) -> torch.Tensor:
     """so(3) exponential: rotation vector (..., 3) -> unit quaternion, with
     the sinc Taylor branch at ||w|| -> 0."""
@@ -122,6 +129,23 @@ def quat_exp(w: torch.Tensor) -> torch.Tensor:
                     torch.sin(half) / torch.where(small, one, theta))
     cw = torch.where(small, 1.0 - theta_sq / 8.0, torch.cos(half))
     return torch.cat([cw, k * w], dim=-1)
+
+
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> rotation vector (..., 3), the inverse of quat_exp,
+    along the shortest path (w >= 0). At ||v|| < 1e-9 the small branch
+    2 v / w applies, and the inner `where` keeps the division (and a
+    forward-mode tangent through ||v|| at v = 0) finite."""
+    w = q[..., :1]
+    v = q[..., 1:]
+    sign = torch.where(w < 0, -1.0, 1.0)
+    w, v = w * sign, v * sign
+    vn = norm(v, keepdim=True)
+    theta = 2.0 * torch.atan2(vn, w)
+    small = vn < 1e-9
+    scale = torch.where(small, 2.0 / torch.clamp_min(w, 1e-12),
+                        theta / torch.where(small, torch.ones_like(vn), vn))
+    return v * scale
 
 
 def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:

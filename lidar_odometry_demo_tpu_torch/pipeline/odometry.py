@@ -207,9 +207,10 @@ class LidarOdometry:
         return diag
 
     def get_current_pose(self) -> tuple[np.ndarray, np.ndarray]:
-        """(translation, quaternion wxyz) — reference getCurrentPose()."""
-        return (self._state.current.t.cpu().numpy(),
-                self._state.current.q.cpu().numpy())
+        """(translation, quaternion wxyz) — reference getCurrentPose(); one
+        device read."""
+        tq = torch.cat([self._state.current.t, self._state.current.q]).cpu().numpy()
+        return tq[:3], tq[3:]
 
     def get_keyframe_cloud(self) -> np.ndarray:
         """1 point/voxel keyframe export — reference getKeyFrameCloud()."""

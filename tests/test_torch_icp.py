@@ -176,3 +176,26 @@ def test_gn_steps_on_cpu_are_the_plain_steps(rng):
                              corr.valid, tse3.quat_to_matrix(pose0.q), pose0.t,
                              huber_delta=TINY.icp_huber_delta)
     assert torch.equal(got[2], H0) and torch.equal(got[3], b0)
+
+
+def test_align_matches_jax_and_caches_per_config(rng, monkeypatch):
+    """icp.align (make_align built once per config) on a TINY map against
+    the JAX align: t within 1e-5, q within 1e-6, equal iterations and
+    matches; two configs give two cache entries, a repeat none."""
+    jm, q, qv, gt, gq = _align_setup(rng, 5, 0.08)
+    tm = tvm.VoxelMap(*(_t(np.asarray(x)) for x in jm))
+    monkeypatch.setattr(ticp, "_ALIGN_CACHE", {})
+    for cached in (True, False):
+        jcfg = JTINY.replace(icp_cached_candidates=cached)
+        tcfg = TINY.replace(icp_cached_candidates=cached)
+        jres = jicp.align(jm, jnp.asarray(q), jnp.asarray(qv),
+                          jse3.Pose(jnp.asarray(gt), jnp.asarray(gq)), jcfg)
+        tres = ticp.align(tm, _t(q), _t(qv), tse3.Pose(_t(gt), _t(gq)), tcfg)
+        assert int(tres.iterations) == int(jres.iterations)
+        assert int(tres.num_matches) == int(jres.num_matches)
+        np.testing.assert_allclose(tres.pose.t.numpy(), np.asarray(jres.pose.t), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(tres.pose.q.numpy(), np.asarray(jres.pose.q), atol=1e-6, rtol=0)
+    assert len(ticp._ALIGN_CACHE) == 2
+    fn = ticp._cached_align(TINY)
+    ticp.align(tm, _t(q), _t(qv), tse3.Pose(_t(gt), _t(gq)), TINY)
+    assert len(ticp._ALIGN_CACHE) == 2 and ticp._cached_align(TINY) is fn

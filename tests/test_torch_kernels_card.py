@@ -559,3 +559,90 @@ def test_tiny_fleet_on_card_matches_cpu():
     rounds = int(iters.max(axis=1).sum())
     assert launched == (rounds, TINY.icp_inner_iterations * rounds,
                         int((iters.max(axis=1) > 0).sum()) + 5)
+
+
+# ---------------------------------------------------------------------------
+# live ingestion and the pose graph on the card
+# ---------------------------------------------------------------------------
+
+def test_tiny_run_live_on_card_matches_cpu():
+    """run_live over a TINY drive's packets (no socket) on the card against
+    the same on the CPU: t within 1e-4 m, equal iterations, and the main
+    path's launch schedule."""
+    _need_card()
+    from lidar_odometry_demo_tpu_torch.io import live, native
+    from lidar_odometry_demo_tpu_torch.io.simulator import encode_vlp16_packets
+
+    if not native.available():
+        pytest.skip("no C++ compiler: the native library cannot be built")
+    d = simulate_sequence(num_scans=6, width=TINY.scan_width, seed=3, speed=2.0, yaw_rate=0.05,
+                          ramp_time=0.0)
+    packets = b"".join(encode_vlp16_packets(s["range_image"], s["scan_start"]) for s in d.scans)
+    packets = [packets[i:i + live.PACKET_SIZE] for i in range(0, len(packets), live.PACKET_SIZE)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        odo = odometry.LidarOdometry(TINY, device=dev)
+        ts, iters = [], []
+        before = (match_rows.launches, jtwj_accumulate.launches, search_sorted.launches)
+        n = live.run_live(odo, iter(packets), flush_partial=True,
+                          on_scan=lambda i, t, diag: (ts.append(t),
+                                                      iters.append(int(diag.icp_iterations))))
+        launched = (match_rows.launches - before[0], jtwj_accumulate.launches - before[1],
+                    search_sorted.launches - before[2])
+        runs[dev] = (n, np.stack(ts), np.array(iters), launched)
+    (n_cpu, t_cpu, it_cpu, _), (n_gpu, t_gpu, it_gpu, launched) = runs["cpu"], runs["cuda"]
+    assert n_cpu == n_gpu == 6
+    np.testing.assert_allclose(t_gpu, t_cpu, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(it_gpu, it_cpu)
+    rounds = int(it_gpu.sum())
+    assert launched == (rounds, TINY.icp_inner_iterations * rounds,
+                        int(np.sum(it_gpu > 0)) + n_gpu)
+
+
+def _smoke():
+    """chip_smoke.py as a module: its noisy loop and its system scale."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("solver", ["direct", "schur", "segment"])
+def test_refine_on_card_matches_cpu(solver):
+    """The pose graph on the card against the CPU: the first Gauss-Newton
+    system's H and b within 1e-5 of their scale, the refined poses within
+    5e-3 of the correction's scale (the JAX tests' bar for float32 dense
+    elimination), the drift halved and pose 0 held."""
+    _need_card()
+    from lidar_odometry_demo_tpu_torch.parallel import pose_graph as pg
+
+    smoke = _smoke()
+    P_n, pairs = (256, [(248, 0), (128, 0)]) if solver == "segment" else (32, [(31, 0)])
+    gt_t, _, est_t, est_q, closure = smoke.make_noisy_loop(
+        P_n, drift=0.02 if solver == "segment" else 0.03)
+    closures = [(i, j, closure(i, j), 1.0) for i, j in pairs]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = pg.chain_from_odometry(est_t, est_q, closures=closures, device=dev)
+        if solver == "segment":
+            system = pg.build_chain_system(g, 8)
+            refined = pg.refine_segment(g, stride=8, iterations=10)
+        else:
+            system = pg.build_normal_equations(g)
+            refined = pg.refine(g, iterations=10, use_schur=solver == "schur")
+        out[dev] = ([x.cpu().numpy() for x in system], refined.poses.t.cpu().numpy(),
+                    refined.poses.q.cpu().numpy())
+    (sys_c, t_c, q_c), (sys_g, t_g, q_g) = out["cpu"], out["cuda"]
+    for a, b in zip(sys_g, sys_c):
+        np.testing.assert_allclose(a, b, atol=1e-5 * smoke._edge_scale(b), rtol=1e-5)
+    step = np.abs(t_c - est_t).max()
+    np.testing.assert_allclose(t_g, t_c, atol=5e-3 * step, rtol=0)
+    np.testing.assert_allclose(q_g, q_c, atol=5e-3 * max(np.abs(q_c - est_q).max(), 1e-3),
+                               rtol=0)
+    rms = lambda t: np.sqrt(np.mean(np.sum((t - gt_t) ** 2, -1)))  # noqa: E731
+    assert rms(t_g) < 0.5 * rms(est_t)
+    np.testing.assert_allclose(t_g[0], est_t[0], atol=1e-3)

@@ -161,6 +161,117 @@ def test_reference_parity_tiny_drive_matches_jax(drive):
     assert not tdiag.diverged.any()
 
 
+# ROADMAP Queue C: seed 0 under reference_parity(TINY) (C2) and seed 1 under
+# the default TINY (C3), each on a 5-scan drive
+def _seed_drive(seed):
+    d = simulate_sequence(num_scans=5, width=TINY.scan_width, seed=seed, speed=2.0,
+                          yaw_rate=0.05, ramp_time=0.0)
+    return [(s["xyz"], s["intensity"], s["ring"], s["time"]) for s in d.scans]
+
+
+def _jax_steps(cfg, raw, lanes=False):
+    """The JAX step over the drive (under jax.vmap at B = 1 with `lanes`):
+    every carried state and every scan's diagnostics, as numpy."""
+    step = jodo.make_process_scan(cfg)
+    state = jodo.init_state(cfg)
+    if lanes:
+        step = jax.vmap(step)
+        state = jax.tree.map(lambda x: x[None], state)
+    step = jax.jit(step)
+    states, diags = [jax.tree.map(np.asarray, state)], []
+    for r in raw:
+        scan = jax_scan(*r, JTINY.max_raw_points)
+        if lanes:
+            scan = jax.tree.map(lambda x: x[None], scan)
+        state, diag = step(state, scan)
+        if lanes:
+            state_np = jax.tree.map(lambda x: np.asarray(x)[0], state)
+            diag = jax.tree.map(lambda x: np.asarray(x)[0], diag)
+        else:
+            state_np = jax.tree.map(np.asarray, state)
+        states.append(state_np)
+        diags.append(jax.tree.map(np.asarray, diag))
+    return states, diags
+
+
+@pytest.fixture(scope="module")
+def seed0_parity():
+    """C2's drive: seed 0 through the JAX step under reference_parity(TINY)."""
+    raw = _seed_drive(0)
+    return raw, *_jax_steps(jreference_parity(JTINY), raw)
+
+
+def test_c2_one_step_from_jax_state_is_exact(seed0_parity):
+    """C2, the op half: started from JAX's own carried state, the port's step
+    on scan 4 gives JAX's keys, counts and origin exactly (the counts that
+    differ on the chained drive below come from the carried pose alone)."""
+    raw, jstates, jdiags = seed0_parity
+    state = state_from_numpy(jstates[4], device="cpu")
+    new, diag = todo.make_process_scan(reference_parity(TINY))(
+        state, port_scan(*raw[4], TINY.max_raw_points, "cpu"))
+    for f in ("keys", "count", "origin"):
+        np.testing.assert_array_equal(getattr(new.keyframe, f).numpy(),
+                                      getattr(jstates[5].keyframe, f))
+    np.testing.assert_allclose(diag.pose.t.numpy(), jdiags[4].pose.t, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(diag.pose.q.numpy(), jdiags[4].pose.q, atol=1e-5, rtol=0)
+    assert int(diag.icp_iterations) == int(jdiags[4].icp_iterations)
+
+
+def _counts_moved_between_adjacent_slots(got, want):
+    """Where the counts differ, they differ by one point that moved between
+    two adjacent slots: pairs (s, s + 1) with differences +-1 and -+1."""
+    d = got.astype(np.int64) - want.astype(np.int64)
+    idx = list(np.nonzero(d)[0])
+    while idx:
+        s = idx.pop(0)
+        if not idx or idx[0] != s + 1 or abs(d[s]) != 1 or d[s] + d[s + 1] != 0:
+            return False
+        idx.pop(0)
+    return True
+
+
+def test_c2_chained_drive_within_carried_pose_ulps(seed0_parity):
+    """C2, the chained half: the 5-scan drive from the empty map. Poses
+    within 1e-6 (t and q), keys equal, iterations and matches equal; the
+    counts may differ only by a point moving between two adjacent slots
+    with an unchanged sum (a pose 1e-7 m from JAX's moves a boundary point
+    into the neighbouring voxel)."""
+    raw, jstates, jdiags = seed0_parity
+    step = todo.make_process_scan(reference_parity(TINY))
+    state = todo.init_state(reference_parity(TINY), "cpu")
+    for k, r in enumerate(raw):
+        state, diag = step(state, port_scan(*r, TINY.max_raw_points, "cpu"))
+        np.testing.assert_allclose(diag.pose.t.numpy(), jdiags[k].pose.t, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(diag.pose.q.numpy(), jdiags[k].pose.q, atol=1e-6, rtol=0)
+        assert int(diag.icp_iterations) == int(jdiags[k].icp_iterations)
+        assert int(diag.num_matches) == int(jdiags[k].num_matches)
+        want = jstates[k + 1].keyframe
+        np.testing.assert_array_equal(state.keyframe.keys.numpy(), want.keys)
+        assert _counts_moved_between_adjacent_slots(state.keyframe.count.numpy(), want.count), k
+    assert not np.array_equal(state.keyframe.count.numpy(), jstates[5].keyframe.count)
+
+
+def test_c3_ill_conditioned_drive_within_jax_own_spread():
+    """C3: seed 1 under TINY sees [0, 508, 1, 0, 0] matches, so the rotation
+    is held by the damping alone. The port's q stays within the JAX step's
+    own spread between its single and its vmapped run (+ 1e-6); matches
+    and iterations equal, t within 1e-5."""
+    raw = _seed_drive(1)
+    _, single = _jax_steps(JTINY, raw)
+    _, vmapped = _jax_steps(JTINY, raw, lanes=True)
+    _, tdiag = todo.make_sequence_runner(TINY)(
+        todo.init_state(TINY, "cpu"), [port_scan(*r, TINY.max_raw_points, "cpu") for r in raw])
+    assert [int(d.num_matches) for d in single] == [0, 508, 1, 0, 0]
+    for k in range(len(raw)):
+        for ref in (single[k], vmapped[k]):
+            assert int(tdiag.num_matches[k]) == int(ref.num_matches)
+            assert int(tdiag.icp_iterations[k]) == int(ref.icp_iterations)
+        np.testing.assert_allclose(tdiag.pose.t[k].numpy(), single[k].pose.t, atol=1e-5, rtol=0)
+        port_dq = np.abs(tdiag.pose.q[k].numpy() - single[k].pose.q).max()
+        jax_dq = np.abs(vmapped[k].pose.q - single[k].pose.q).max()
+        assert port_dq <= jax_dq + 1e-6, (k, port_dq, jax_dq)
+
+
 # the config of tests/test_oracle_equivalence.py: budgets cover the worst case
 ORACLE_CFG = dict(scan_width=450, max_raw_points=8192, max_planar_points=8192,
                   max_match_points=8192, max_update_points=8192, map_capacity=32768)
@@ -208,6 +319,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "lidar_odometry_demo_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    names = {str(p.relative_to(REPO)) for p in files}
+    for mod in ("io/native.py", "io/live.py", "io/real_world.py", "parallel/pose_graph.py"):
+        assert f"lidar_odometry_demo_tpu_torch/{mod}" in names, mod
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

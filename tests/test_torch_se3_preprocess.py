@@ -164,3 +164,55 @@ def test_transform_with_normals_matches_jax(rng):
     jr, tr = jpre.transform_with_normals(jp, jpose), tpre.transform_with_normals(tp, tpose)
     _close_cloud(jr.xyz, tr.xyz)
     _close(jr.normal, tr.normal)
+
+
+def test_quat_log_round_trip_matches_jax(rng):
+    """tests/test_se3.py's exp/log round trip (|w| < pi, atol 1e-4 to w),
+    plus quaternions with w < 0 (the shortest-path flip) and the exact
+    identity, against the JAX quat_log within 1e-6."""
+    w = rng.normal(size=(64, 3))
+    w = w / np.linalg.norm(w, axis=-1, keepdims=True) * rng.uniform(0, 3.0, (64, 1))
+    w = w.astype(np.float32)
+    q = tse3.quat_exp(torch.from_numpy(w))
+    np.testing.assert_allclose(tse3.quat_log(q).numpy(), w, atol=1e-4, rtol=0)
+    qs = np.concatenate([q.numpy(), -q.numpy()[:16], [[1.0, 0.0, 0.0, 0.0]],
+                         [[-1.0, 0.0, 0.0, 0.0]]]).astype(np.float32)
+    assert (qs[:, 0] < 0).sum() >= 16
+    got = tse3.quat_log(torch.from_numpy(qs)).numpy()
+    _close(jse3.quat_log(jnp.asarray(qs)), torch.from_numpy(got))
+    np.testing.assert_allclose(got[64:80], w[:16], atol=1e-4, rtol=0)  # -q is the same rotation
+    np.testing.assert_array_equal(got[-2:], 0.0)
+
+
+def test_quat_log_small_angle_matches_jax():
+    """tests/test_se3.py's small angles: exp then log returns w within 1e-9."""
+    w = np.array([[0.0, 0.0, 0.0], [1e-8, 0, 0], [0, -1e-7, 0]], np.float32)
+    q = tse3.quat_exp(torch.from_numpy(w))
+    np.testing.assert_allclose(tse3.norm(q).numpy(), 1.0, atol=1e-6)
+    got = tse3.quat_log(q)
+    np.testing.assert_allclose(got.numpy(), w, atol=1e-9, rtol=0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jse3.quat_log(jnp.asarray(q.numpy()))))
+
+
+def test_quat_from_axis_angle_matches_jax(rng):
+    axis = rng.normal(size=(32, 3))
+    axis = (axis / np.linalg.norm(axis, axis=1, keepdims=True)).astype(np.float32)
+    angle = rng.uniform(-np.pi, np.pi, 32).astype(np.float32)
+    _close(jse3.quat_from_axis_angle(jnp.asarray(axis), jnp.asarray(angle)),
+           tse3.quat_from_axis_angle(torch.from_numpy(axis), torch.from_numpy(angle)))
+    _close(jse3.quat_from_axis_angle(jnp.asarray(axis[0]), 0.7),
+           tse3.quat_from_axis_angle(torch.from_numpy(axis[0]), 0.7))
+
+
+def test_transform_scan_matches_jax(rng):
+    xyz = rng.normal(0, 1, (300, 3)).astype(np.float32)
+    args = (xyz, rng.uniform(0, 100, 300).astype(np.float32),
+            rng.integers(0, 16, 300).astype(np.int32),
+            rng.uniform(0.0, 0.1, 300).astype(np.float32), 512)
+    js, ts = jcloud.scan_from_numpy(*args), tcloud.scan_from_numpy(*args, device="cpu")
+    (jpose, tpose) = _poses(rng, 1)
+    jpose, tpose = jse3.Pose(jpose.t[0], jpose.q[0]), tse3.Pose(tpose.t[0], tpose.q[0])
+    jr, tr = jpre.transform_scan(js, jpose), tpre.transform_scan(ts, tpose)
+    _close(jr.xyz, tr.xyz)
+    for f in ("intensity", "ring", "time", "valid"):
+        np.testing.assert_array_equal(getattr(tr, f).numpy(), np.asarray(getattr(jr, f)))
