@@ -95,10 +95,40 @@ Phases, each of which raises (non-zero exit) on failure:
    point: poses move under 1e-3 m), direct and Schur; a 32-pose noisy loop
    with a closure, direct and Schur (RMS against ground truth halved, pose
    0 within 1e-3 m); the segment Schur solver at P = 256, stride 8; the
-   CLI's `refine` (and `--schur`) on phase 3's TUM. No kernel launches.
+   CLI's `refine` (and `--schur`) on phase 3's TUM. No kernel launches;
+10. the sharded modes on one H100. K2's epilogue entry point (`gn_epilogue`,
+   the second part of a step split around a sum over ranks) against its
+   plain version at Q = 8192, B = 1 and B = 8 with lane 3 inactive: pose
+   within 1e-6, and accumulate-then-epilogue bitwise the fused step. The
+   composite view of the column-sharded map on the card: phase 3's final
+   map split into N = 2 and 4 shards, each rank's view merged from its
+   shard and its ring neighbours' (131,072 and 98,304 rows), searched by K3
+   and K1 at one more step's guess pose: every owned query bitwise the
+   replicated search. Then two ranks spawned on cuda:0 over gloo (the
+   kernels built before, so no rank runs nvcc; the inputs handed over as
+   files): (a) sp = 2 on the bench drive, bitwise (poses, iterations,
+   matches) the one-process witness of the split sums (the same two halves
+   in two threads of the parent, H, b, matches and costs added on the card
+   in rank order: sp_witness), and within 1e-4 m of phase 3 (the JAX
+   package's bar for an sp sequence, tests/test_parallel.py:147) with equal
+   iterations and ATE within 1e-4 m of 0.00936 m; (b) spatial N = 2, within
+   1e-3 m of phase 3, ATE under 0.03 m, the shards disjoint, both ranks'
+   halo views equal and holding both shards, and on each rank, after the
+   last scan, the view build_halo_view made (through the real exchange)
+   searched for the queries the rank owns (phase 3's last lookup) bitwise,
+   field by field, the search on the merge of every rank's shard gathered
+   through the mesh, the owned queries a partition; (c) dp = 2 with four of phase
+   7's lanes per rank, each bitwise phase 7's lane; (a)-(c) with the
+   split or batched launch schedule, per-rank ms/scan, collectives, halo
+   bytes, staging ms and launches per scan printed; (d) the edge-sharded
+   refine of phase 9's noisy loop, within 5e-3 of the correction from
+   phase 9's and equal on both ranks. Last, a world of one on NCCL: psum
+   and ppermute_from (to itself) through the mesh's group.
 
 Prints a `kernels` JSON line (each kernel with its launches on every path,
-`launches_live` the live phase's,
+`launches_live` the live phase's, `launches_sharded_sp` / `_spatial` /
+`_dp` phase 10's per rank, K2's epilogue entry point as a kernel of its
+own whose `launches` are the sp path's,
 its times, bound and plain time at the main path's shapes and at B = 8,
 and `redesigned`: the PR that last redesigned it, or null), the card's name
 and power limit, then as its last line
@@ -317,7 +347,7 @@ def check_jtwj(rng, device) -> dict:
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig
     from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
         GnWork, gn_step, gn_step_plain, jtwj_accumulate, jtwj_plain)
-    from lidar_odometry_demo_tpu_torch.ops.se3 import Pose
+    from lidar_odometry_demo_tpu_torch.ops.se3 import Pose, quat_to_matrix
     from lidar_odometry_demo_tpu_torch.ops.voxel_map import Correspondence
 
     rot = Rotation.from_euler("xyz", [0.02, -0.01, 0.3])
@@ -333,13 +363,24 @@ def check_jtwj(rng, device) -> dict:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for a in (sl, po, pn, valid, R, t)]
 
+    cfg = OdometryConfig()
+    q_np = rot.as_quat()[[3, 0, 1, 2]].astype(np.float32)
+
+    def step_inputs(Q):
+        sl, po, pn, valid, _, t = system(Q)
+        pose = Pose(t, torch.from_numpy(q_np).to(device))
+        return Correspondence(sl, po, pn, valid), pose, t + 0.05
+
+    def hb_plain(corr, pose):
+        return jtwj_plain(*corr, quat_to_matrix(pose.q), pose.t, huber_delta=0.15)
+
     max_err = 0.0
-    # normal-equations mode (jtwj_accumulate)
+    # normal-equations mode (jtwj_accumulate: H and b at the pose)
     for Q in (8192, 8192 - 77):
-        args = system(Q)
-        H, b = jtwj_accumulate(*args, huber_delta=0.15)
-        H2, b2 = jtwj_accumulate(*args, huber_delta=0.15)
-        Hp, bp = jtwj_plain(*args, huber_delta=0.15)
+        corr, pose, _ = step_inputs(Q)
+        H, b = jtwj_accumulate(corr, pose, huber_delta=0.15)
+        H2, b2 = jtwj_accumulate(corr, pose, huber_delta=0.15)
+        Hp, bp = hb_plain(corr, pose)
         torch.cuda.synchronize()
         if not (torch.equal(H, H2) and torch.equal(b, b2)):
             raise AssertionError("K2 is not bitwise repeatable")
@@ -349,14 +390,6 @@ def check_jtwj(rng, device) -> dict:
             max_err = max(max_err, (got - ref).abs().max().item())
 
     # step mode (the main path's): one whole Gauss-Newton step
-    cfg = OdometryConfig()
-    q_np = rot.as_quat()[[3, 0, 1, 2]].astype(np.float32)
-
-    def step_inputs(Q):
-        sl, po, pn, valid, _, t = system(Q)
-        pose = Pose(t, torch.from_numpy(q_np).to(device))
-        return Correspondence(sl, po, pn, valid), pose, t + 0.05
-
     def snapshot(out):
         pose, norm, H, b = out
         return [x.clone() for x in (pose.t, pose.q, norm, H, b)]
@@ -397,9 +430,10 @@ def check_jtwj(rng, device) -> dict:
     ms = time_ms(step, 200)
     call_ms = time_ms(step, 200, queue_first=False)
     plain_ms = time_ms(lambda: gn_step_plain(corr, pose, guess_t, cfg), 20)
-    hb_args = system(8192)
-    hb_ms = time_ms(lambda: jtwj_accumulate(*hb_args, huber_delta=0.15), 200)
-    hb_plain_ms = time_ms(lambda: jtwj_plain(*hb_args, huber_delta=0.15), 20)
+    hb_args = step_inputs(8192)[:2]
+    hb_work = GnWork.empty(1, device)
+    hb_ms = time_ms(lambda: jtwj_accumulate(*hb_args, huber_delta=0.15, work=hb_work), 200)
+    hb_plain_ms = time_ms(lambda: hb_plain(*hb_args), 20)
     # what does not scale with the rows: the step at Q = 1, and the card's
     # back-to-back launch floor (a one-element torch op)
     one = step_inputs(1)
@@ -970,7 +1004,7 @@ def run_fleet(bench: dict, main_diags: list, main_odo, single_ms: float, device)
             "search_sorted": icp_steps + S}
     if launches != want:
         raise AssertionError(f"fleet path: launches {launches} != the schedule {want}")
-    return dict(launches=launches, state=state, scans=scans_b, ms_per_step=ms_step,
+    return dict(launches=launches, state=state, scans=scans_b, diags=diags, ms_per_step=ms_step,
                 scans_per_sec=sps, ates=ates)
 
 
@@ -1713,6 +1747,645 @@ def run_refine(main_diags: list, device) -> dict:
     return results
 
 
+# --------------------------------------------------------------------------
+# phase 10: the sharded modes on one H100 (two ranks on cuda:0 over gloo)
+# --------------------------------------------------------------------------
+
+SHARDED_RANKS = 2
+MAIN_PATH_ATE = 0.00936  # phase 3's aligned ATE on the bench drive, which sp must hold
+ATE_CEILING = 0.03       # every path's aligned ATE bound
+# sp's trajectory against phase 3's, m: the JAX package's own bar for an
+# sp-sharded sequence against its single run (tests/test_parallel.py:147).
+# Summing H and b over the ranks reorders float32 sums, so the two drift
+# apart by ulps from scan 1 on and a correspondence at a gate's edge flips
+SP_FROM_MAIN_M = 1e-4
+
+
+class ThreadGroup:
+    """Rank `rank` of a group of n threads of one process, standing in for
+    an sp group of n ranks (the interface ops/icp.py and
+    pipeline/odometry.py use: size, rank, psum). `psum` adds the n threads'
+    tensors on the device in rank order, x_0 + x_1 + ..., which is what an
+    all-reduce over two ranks gives (float addition commutes): at n = 2 it
+    is the one-process witness of the split sums. The threads share one
+    stream, so the barriers order the reads and writes on the device."""
+
+    def __init__(self, rank: int, shared: dict):
+        self.rank, self.size, self.shared = rank, shared["n"], shared
+
+    @staticmethod
+    def shared(n: int) -> dict:
+        import threading
+
+        return {"n": n, "barrier": threading.Barrier(n, timeout=120), "slots": [None] * n}
+
+    def psum(self, x, kind: str = "psum"):
+        sh = self.shared
+        sh["slots"][self.rank] = x
+        sh["barrier"].wait()  # every rank's x is in
+        total = sh["slots"][0]
+        for y in sh["slots"][1:]:
+            total = total + y
+        sh["barrier"].wait()  # every rank has queued its reads of the slots
+        return x.copy_(total)
+
+
+def sp_witness(cfg, scans, device, n: int = 2) -> dict:
+    """The sp path with its group's sums taken in one process: n threads
+    each drive `make_process_scan(cfg, sp_group=...)` over `scans` from a
+    fresh state with a ThreadGroup, so each Gauss-Newton step is split into
+    the same halves (jtwj_accumulate on each rank's slice of the matching
+    points), whose H and b, matches and cost sums are added in rank order
+    before the epilogue. Returns rank 0's poses, iterations and matches
+    (numpy); raises if the threads disagree."""
+    import threading
+    import traceback
+
+    from lidar_odometry_demo_tpu_torch.pipeline import odometry
+
+    shared = ThreadGroup.shared(n)
+    outs, errors = [None] * n, []
+
+    def drive(rank):
+        try:
+            step = odometry.make_process_scan(cfg, sp_group=ThreadGroup(rank, shared))
+            state, diags = odometry.init_state(cfg, device), []
+            for scan in scans:
+                state, d = step(state, scan)
+                diags.append(d)
+            d = odometry.stack_diagnostics(diags)
+            outs[rank] = {f: x.cpu().numpy() for f, x in (
+                ("t", d.pose.t), ("q", d.pose.q), ("iters", d.icp_iterations),
+                ("matches", d.num_matches))}
+        except Exception:  # reported below; the other threads' barrier breaks
+            errors.append(traceback.format_exc())
+            shared["barrier"].abort()
+
+    threads = [threading.Thread(target=drive, args=(r,), daemon=True) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("sp witness: a thread is still running after 600 s")
+    if errors:
+        raise AssertionError(f"sp witness: a thread failed:\n{errors[0]}")
+    for o in outs[1:]:
+        if not all(np.array_equal(o[f], outs[0][f]) for f in o):
+            raise AssertionError("sp witness: the threads' results differ")
+    return outs[0]
+
+
+def sharded_counters() -> dict:
+    """The launch-counted kernel wrappers of the sharded paths: phase 3's,
+    plus K2's epilogue entry point (the split step's second part)."""
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import gn_epilogue
+
+    return counters() | {"gn_epilogue": gn_epilogue}
+
+
+def check_gn_epilogue(rng, device) -> dict:
+    """K2's epilogue entry point against its plain version on the card, on
+    the H and b of an epilogue-off launch at the main path's shapes (Q =
+    8192): the split step (accumulate, then the epilogue) bitwise the fused
+    step's pose and step norm, and the plain epilogue's pose within 1e-6;
+    at B = 8 with lane 3 inactive likewise, lane by lane. CUDA event times
+    of the kernel and its plain version."""
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
+        GnWork, gn_epilogue, gn_epilogue_plain, gn_step, jtwj_accumulate)
+    from lidar_odometry_demo_tpu_torch.ops.se3 import Pose
+    from lidar_odometry_demo_tpu_torch.ops.voxel_map import Correspondence
+
+    cfg = OdometryConfig()
+    if gn_epilogue.launches:
+        raise AssertionError(f"K2's epilogue entry point ran {gn_epilogue.launches} times on "
+                             f"the single-process paths (phases 1-9), which never split a step")
+
+    def step_inputs(lanes):
+        Q = 8192
+        sl = rng.uniform(-20, 20, (*lanes, Q, 3)).astype(np.float32)
+        pn = rng.normal(0, 1, (*lanes, Q, 3)).astype(np.float32)
+        pn /= np.linalg.norm(pn, axis=-1, keepdims=True)
+        rot = Rotation.from_euler("xyz", [0.02, -0.01, 0.3])
+        t = np.broadcast_to(np.array([1.5, -0.2, 0.1], np.float32), (*lanes, 3)).copy()
+        po = (sl @ rot.as_matrix().T.astype(np.float32) + t[..., None, :]
+              + rng.normal(0, 0.03, sl.shape)).astype(np.float32)
+        q = np.broadcast_to(rot.as_quat()[[3, 0, 1, 2]].astype(np.float32), (*lanes, 4)).copy()
+        cuda = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (sl, po, pn)]
+        valid = torch.from_numpy(rng.random((*lanes, Q)) < 0.8).to(device)
+        pose = Pose(torch.from_numpy(t).to(device), torch.from_numpy(q).to(device))
+        return Correspondence(*cuda, valid), pose, pose.t + 0.05
+
+    max_err = 0.0
+    for lanes in ((), (8,)):
+        corr, pose, guess_t = step_inputs(lanes)
+        kw = {}
+        if lanes:
+            kw = dict(step_norm=torch.full(lanes, 0.5, device=device),
+                      active=torch.arange(lanes[0], device=device) != 3)
+        fused_work, work = GnWork.empty(1, device, lanes), GnWork.empty(1, device, lanes)
+        fp, fn, _, _ = gn_step(corr, pose, guess_t, cfg, work=fused_work, **kw)
+        H, b = jtwj_accumulate(corr, pose, huber_delta=cfg.icp_huber_delta, work=work,
+                               active=kw.get("active"))
+        sp, sn = gn_epilogue(H, b, pose, guess_t, cfg, work=work, **kw)
+        pp, pn = gn_epilogue_plain(H, b, pose, guess_t, cfg, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(sp.t, fp.t) and torch.equal(sp.q, fp.q) and torch.equal(sn, fn)):
+            raise AssertionError(f"K2 split step at lanes {lanes}: not bitwise the fused step")
+        errs = [(sp.t - pp.t).abs().max().item(), (sp.q - pp.q).abs().max().item()]
+        if max(errs) > 1e-6 or not torch.allclose(sn, pn, rtol=1e-5, atol=1e-7):
+            raise AssertionError(f"K2 epilogue at lanes {lanes} vs its plain version: t, q "
+                                 f"{errs}, norm {(sn - pn).abs().max().item()}")
+        max_err = max(max_err, *errs)
+        if lanes:
+            ms8 = time_ms(lambda: gn_epilogue(H, b, pose, guess_t, cfg, work=work, **kw), 200)
+            plain8 = time_ms(lambda: gn_epilogue_plain(H, b, pose, guess_t, cfg, **kw), 5)
+        else:
+            ms = time_ms(lambda: gn_epilogue(H, b, pose, guess_t, cfg, work=work), 200)
+            plain = time_ms(lambda: gn_epilogue_plain(H, b, pose, guess_t, cfg), 20)
+    # H (36), b (6), the pose (7), the guess (3) read, the pose and norm (8)
+    # written; ~500 flops for the prior, the damping, the Cholesky, the two
+    # substitutions and the pose update
+    b_ms, b_by = bound_ms(60 * 4, 500)
+    log(f"kernel gn_epilogue (K2's epilogue entry point): split step bitwise the fused step "
+        f"at B = 1 and B = 8 (lane 3 inactive); max_abs_err vs plain {max_err:.3g}; kernel "
+        f"{ms:.4f} ms (B = 8: {ms8:.4f}), plain {plain:.4f} ms (B = 8: {plain8:.4f}); bound "
+        f"{b_ms:.8f} ms ({b_by})")
+    gn_epilogue.launches = 0
+    return dict(name="gn_epilogue", route="cuda",
+                source="lidar_odometry_demo_tpu_torch/kernels/jtwj.cu",
+                replaces="lidar_odometry_demo_tpu/ops/pallas/jtwj.py:101",
+                redesigned=None, max_abs_err=max_err, ms=ms, plain_ms=plain, ms_b8=ms8,
+                plain_ms_b8=plain8, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def split_shard(m, n: int, rank: int):
+    """Rank `rank`'s shard of a replicated map (one sequence): the rows of
+    the columns it owns, in key order, in a table of capacity C/n (raises
+    if they do not fit). A row's owner is its key's column gx mod n, gx the
+    key's x field less the window's half width, as spatial.owner_mask gives
+    it for the voxel's points."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.kernels.search import _GHALF, _XOFF, _YB, _ZB
+    from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
+
+    cap = m.capacity // n
+    gx = (m.keys >> (_YB + _ZB)) - _XOFF + _GHALF
+    mine = torch.nonzero((m.keys != vm.EMPTY_KEY) & (torch.remainder(gx, n) == rank))
+    mine = mine.reshape(-1)
+    if mine.numel() > cap:
+        raise AssertionError(f"rank {rank}'s {mine.numel()} rows exceed the shard capacity {cap}")
+    out = vm.map_init(cap, m.max_points, m.tab.device)._replace(origin=m.origin.clone())
+    k = mine.numel()
+    out.tab[:k] = m.tab[mine]
+    out.keys[:k] = m.keys[mine]
+    out.count[:k] = m.count[mine]
+    return out
+
+
+def composite_search_check(m, lookup_args: tuple, n: int, cfg) -> dict:
+    """The column-sharded map's composite search against the replicated
+    map's on the card, bitwise: m split into n shards (split_shard),
+    each rank's view the merge of its shard and its ring neighbours'
+    (spatial.merge_blocks, as build_halo_view merges what it receives), its
+    owned queries gathered (K3) and matched (K1) on the view; every owned
+    query's valid, plane origin and plane normal equal to the replicated
+    search's, and every query owned once. lookup_args: a recorded
+    neighbourhood lookup's (tab, keys, origin, queries, valid, t, R)."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.kernels.search import query_world
+    from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
+    from lidar_odometry_demo_tpu_torch.parallel import spatial
+
+    q_local, q_valid, t, R = lookup_args[3:7]
+    vs = cfg.keyframe_voxel_size
+
+    def search(view, valid):
+        cand = vm.gather_candidates(view, q_local, valid, t, R, voxel_size=vs)
+        return vm.match_candidates(view, cand, q_local, valid, t, R,
+                                   max_distance=cfg.icp_max_correspondence_distance,
+                                   nrm_view=view.nrm)
+
+    want = search(m, q_valid)
+    shards = [split_shard(m, n, r) for r in range(n)]
+    gx = spatial.column_gx(query_world(q_local, R, t), m.origin, vs)
+    owned = torch.zeros_like(q_valid, dtype=torch.int32)
+    for r in range(n):
+        blocks = [shards[r], shards[(r + 1) % n]] + ([shards[(r - 1) % n]] if n > 2 else [])
+        view = spatial.merge_blocks(blocks)
+        own = q_valid & (torch.remainder(gx, n) == r)
+        got = search(view, own)
+        bad = [f for f in ("valid", "plane_origin", "plane_normal")
+               if not torch.equal(getattr(got, f)[own], getattr(want, f)[own])]
+        if bad or bool(got.valid[~own].any()):
+            raise AssertionError(f"composite search, N = {n}, rank {r}: {bad} differ from the "
+                                 f"replicated search (or a query it does not own matched)")
+        owned += own.to(torch.int32)
+    if not torch.equal(owned, q_valid.to(torch.int32)):
+        raise AssertionError(f"composite search, N = {n}: the owned queries are no partition")
+    return dict(rows=view.capacity, matches=int(want.valid.sum()),
+                shard_rows=[int(vm.map_size(s)) for s in shards])
+
+
+def _sharded_drive(step, state, scans, mesh, counted: dict, lanes: int = 1):
+    """One warm-up pass and one timed pass of `scans` through `step` on
+    this rank; every launch count and the mesh's collective costs set to 0
+    just before the timed pass and read just after. Returns the poses,
+    diagnostics, final state, launches, collectives and ms per scan."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.pipeline import odometry
+
+    def run(s):
+        diags = []
+        for scan in scans:
+            s, d = step(s, scan)
+            diags.append(d)
+        return s, odometry.stack_diagnostics(diags)
+
+    run(state)
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    mesh.stats.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    final, d = run(state)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(scans)
+    return dict(t=d.pose.t, q=d.pose.q, iters=d.icp_iterations, matches=d.num_matches,
+                diverged=d.diverged, map_voxels=d.map_voxels,
+                keys=final.keyframe.keys, count=final.keyframe.count,
+                origin=final.keyframe.origin, state=final,
+                launches={k: fn.launches for k, fn in counted.items()},
+                stats=mesh.stats.as_dict(), ms_per_scan=start.elapsed_time(end) / len(scans),
+                host_ms_per_scan=host_ms)
+
+
+def halo_view_search_check(view, shard, mesh, queries, cfg) -> dict:
+    """On one rank of a spatial group, after its last scan: the view
+    `build_halo_view` made (through the real exchange) searched (K3, then
+    K1) for the queries this rank owns, against the same search on the
+    merge of every rank's shard, gathered through the mesh (the replicated
+    map), every field of the match bitwise for the owned queries, and no
+    query it does not own matched. queries: (q_local, q_valid, t, R).
+    Returns the check's result and the owned mask, for the parent."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.kernels.search import query_world
+    from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
+    from lidar_odometry_demo_tpu_torch.parallel import spatial
+
+    dev = view.keys.device
+    q_local, q_valid, t, R = (x.to(dev) for x in queries)
+    vs = cfg.keyframe_voxel_size
+
+    def search(m, valid):
+        cand = vm.gather_candidates(m, q_local, valid, t, R, voxel_size=vs)
+        return vm.match_candidates(m, cand, q_local, valid, t, R,
+                                   max_distance=cfg.icp_max_correspondence_distance,
+                                   nrm_view=m.nrm)
+
+    shards = mesh.all_gather_object(
+        {f: getattr(shard, f).cpu() for f in ("tab", "keys", "count")})
+    full = spatial.merge_blocks([shard._replace(**{f: x.to(dev) for f, x in sh.items()})
+                                 for sh in shards])
+    own = q_valid & spatial.owner_mask(query_world(q_local, R, t), view.origin, vs, mesh.sp)
+    got, want = search(view, own), search(full, own)
+    bad = [f for f in got._fields
+           if not torch.equal(getattr(got, f)[own], getattr(want, f)[own])]
+    return dict(bad_fields=bad, foreign_matched=bool(got.valid[~own].any()),
+                owned=own, matched=int(got.valid[own].sum()), replicated_rows=full.capacity)
+
+
+def _view_digest(view) -> str:
+    """sha1 of a view's live rows (keys, counts, rows), in key order."""
+    import hashlib
+
+    live = view.keys != 0x7FFFFFFF
+    h = hashlib.sha1()
+    for x in (view.keys[live], view.count[live], view.tab[live]):
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharded_rank(inputs: str) -> dict:
+    """One of phase 10's two ranks (parallel/mesh.py run_ranks, gloo on
+    cuda:0): (a) sp = 2, (b) spatial N = 2, (c) dp = 2 with four fleet lanes
+    per rank, each a warm-up and a timed pass of the 40 scans; (d) the
+    edge-sharded refine of phase 9's noisy loop. Returns numpy results."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
+    from lidar_odometry_demo_tpu_torch.parallel import batched, spatial
+    from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
+    from lidar_odometry_demo_tpu_torch.parallel import pose_graph as pg
+    from lidar_odometry_demo_tpu_torch.pipeline import odometry
+
+    cfg = OdometryConfig()
+    mesh = mesh_lib.make_mesh(1, SHARDED_RANKS)
+    dev = mesh.device
+    data = torch.load(inputs.format(name="bench"), weights_only=False)
+    scans = [LidarScan(*(x[i].to(dev) for x in data)) for i in range(data.xyz.shape[0])]
+    counted = sharded_counters()
+    out = {"backend": mesh.backend, "device": str(dev)}
+
+    # (a) sp: every rank aligns its half of the matching points
+    step = odometry.make_process_scan(cfg, sp_group=mesh.sp)
+    r = _sharded_drive(step, odometry.init_state(cfg, dev), scans, mesh, counted)
+    r.pop("state")
+    out["sp"] = r
+
+    # (b) spatial: a column shard of the map per rank, the halo per scan
+    step = odometry.make_process_scan(cfg, spatial_group=mesh.sp)
+    r = _sharded_drive(step, spatial.init_spatial_state(cfg, SHARDED_RANKS, dev), scans, mesh,
+                       counted)
+    shard = r.pop("state").keyframe
+    view = spatial.build_halo_view(shard, mesh.sp)
+    r.update(view_digest=_view_digest(view), view_rows=view.capacity,
+             view_live_keys=view.keys[view.keys != 0x7FFFFFFF],
+             view_search=halo_view_search_check(
+                 view, shard, mesh, torch.load(inputs.format(name="queries"),
+                                               weights_only=False), cfg))
+    out["spatial"] = r
+
+    # (c) dp: this rank's four of phase 7's eight lanes
+    dmesh = mesh_lib.make_mesh(SHARDED_RANKS, 1)
+    data = torch.load(inputs.format(name=f"fleet{dmesh.dp_index}"), weights_only=False)
+    scans_b = [LidarScan(*(x[i].to(dev) for x in data)) for i in range(data.xyz.shape[0])]
+    lanes = data.xyz.shape[1]
+    step = batched.make_batched_step(cfg, dmesh)
+    r = _sharded_drive(step, batched.init_batched_state(cfg, lanes, dev), scans_b, dmesh,
+                       counted)
+    r.pop("state")
+    r["lanes"] = (dmesh.lanes(lanes * dmesh.dp).start, dmesh.lanes(lanes * dmesh.dp).stop)
+    out["dp"] = r
+
+    # (d) refine: the loop's edges split over the ranks, 10 iterations
+    _, _, est_t, est_q, closure = make_noisy_loop(32, 0.03)
+    g = pg.chain_from_odometry(est_t, est_q, closures=[(31, 0, closure(31, 0), 1.0)],
+                               device=dev)
+    dmesh.stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined = pg.make_refine_sharded(dmesh, "dp", iterations=10)(pg.pad_edges(g, dmesh.dp))
+    out["refine"] = dict(t=refined.poses.t, q=refined.poses.q,
+                         ms=(time.perf_counter() - t0) * 1e3, stats=dmesh.stats.as_dict())
+    return out
+
+
+def nccl_rank() -> dict:
+    """A world of one on the card: NCCL (each rank has a card of its own),
+    one psum and one ppermute_from (to itself) through the mesh's group."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh(1, 1)
+    x = torch.arange(6, dtype=torch.float32, device=mesh.device)
+    s = mesh.sp.psum(x.clone())
+    y = mesh.sp.ppermute_from(x, 1)
+    torch.cuda.synchronize()
+    return dict(backend=mesh.backend, live=mesh.sp.live, psum=s, recv=y,
+                stats=mesh.stats.as_dict())
+
+
+def _per_scan(r: dict, n_scans: int) -> str:
+    st = r["stats"]
+    launches = " / ".join(f"{k} {v / n_scans:.2f}" for k, v in r["launches"].items())
+    return (f"{r['ms_per_scan']:.3f} ms/scan by CUDA events ({r['host_ms_per_scan']:.3f} host); "
+            f"collectives {st['collectives'] / n_scans:.2f}/scan, "
+            f"{st['collective_ms'] / n_scans:.3f} ms/scan in the collectives after "
+            f"{st['wait_ms'] / n_scans:.3f} ms/scan waiting for queued work; halo exchanges "
+            f"{st['exchanges'] / n_scans:.2f}/scan, {st['exchanged_bytes'] / n_scans / 1e6:.3f} "
+            f"MB/scan, {st['exchange_ms'] / n_scans:.3f} ms/scan, of which staging "
+            f"{st['staging_ms'] / n_scans:.3f} ms ({st['staged_bytes'] / n_scans / 1e6:.3f} "
+            f"MB/scan); launches per scan {launches}")
+
+
+def run_sharded(bench: dict, main_diags: list, main_odo, fleet: dict, refine: dict,
+                device) -> dict:
+    """Phase 10: the kernels are built (phase 1) before any rank starts, so
+    no rank runs nvcc; two ranks on cuda:0 over gloo run (a)-(d)
+    (sharded_rank), held to phases 3, 7 and 9; the composite search against
+    the replicated one on the main path's map at N = 2 and 4; a world of one
+    on NCCL. Returns each mode's launches and numbers."""
+    import tempfile
+
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
+    from lidar_odometry_demo_tpu_torch.kernels import _build
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
+    from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = OdometryConfig()
+    n_scans = len(bench["scans"])
+    if not all(_build._lib_path(name).exists() for name in _build.SOURCES):
+        raise AssertionError("phase 10: the kernels are not built before the ranks start")
+    epilogue = check_gn_epilogue(np.random.default_rng(7), device)
+
+    # the composite view's search on the card, at N = 2 (C rows) and N = 4
+    # (3C/4 rows, no power of two), on the main path's final map at one more
+    # step's guess pose
+    lookup = path_lookups(main_odo, bench["scans"][-1])["neighbourhood"][0][0]
+    for n in (2, 4):
+        c = composite_search_check(main_odo.state.keyframe, lookup, n, cfg)
+        log(f"sharded: composite search at N = {n} ({c['rows']} rows per view, shards of "
+            f"{c['shard_rows']} voxels) bitwise the replicated search for every owned query; "
+            f"{c['matches']} matches")
+
+    tmp = tempfile.mkdtemp(prefix="sharded_")
+    try:
+        t0 = time.perf_counter()
+        torch.save(LidarScan(*(torch.stack([getattr(s, f) for s in bench["scans"]]).cpu()
+                               for f in LidarScan._fields)), os.path.join(tmp, "bench.pt"))
+        B = fleet["scans"].xyz.shape[1]
+        per = B // SHARDED_RANKS
+        for d in range(SHARDED_RANKS):
+            torch.save(LidarScan(*(x[:, d * per:(d + 1) * per].cpu() for x in fleet["scans"])),
+                       os.path.join(tmp, f"fleet{d}.pt"))
+        q_local, q_valid, t, R = lookup[3:7]
+        torch.save([x.cpu() for x in (q_local, q_valid, t, R)], os.path.join(tmp, "queries.pt"))
+        log(f"sharded: inputs written for the ranks in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ranks = mesh_lib.run_ranks(sharded_rank, SHARDED_RANKS,
+                                   os.path.join(tmp, "{name}.pt"), device="cuda",
+                                   timeout=600)
+        log(f"sharded: {SHARDED_RANKS} ranks spawned, ran (a)-(d) and joined in "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    log(f"sharded: {SHARDED_RANKS} ranks on {r0['device']} ({torch.cuda.get_device_name(0)}), "
+        f"backend {r0['backend']}; two ranks on one card measure correctness and per-rank "
+        f"overhead, not scaling")
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"sharded: two ranks on one card must pick gloo: "
+                             f"{[r['backend'] for r in ranks]}")
+
+    t0 = time.perf_counter()
+    witness = sp_witness(cfg, bench["scans"], device, SHARDED_RANKS)
+    log(f"sharded: the sp witness (two threads of this process, the split sums added on the "
+        f"card in rank order) ran the 40 scans in {time.perf_counter() - t0:.1f} s")
+    st = np.stack([d.pose.t.cpu().numpy() for d in main_diags])
+    s_iters = np.array([int(d.icp_iterations) for d in main_diags])
+    s_matches = np.array([int(d.num_matches) for d in main_diags])
+    results = {"kernel": epilogue}
+    for mode in ("sp", "spatial"):
+        rs = [r[mode] for r in ranks]
+        for f in ("t", "q", "iters", "matches", "map_voxels"):
+            if not all(np.array_equal(rs[0][f], r[f]) for r in rs[1:]):
+                raise AssertionError(f"sharded {mode}: the ranks' {f} differ")
+        a = rs[0]
+        dt = float(np.abs(a["t"] - st).max())
+        ate = ate_rmse(a["t"], bench["gt_rel"], align=True)
+        rounds = a["stats"]["by_kind"].get("matches,cost", 0)
+        for i, r in enumerate(rs):
+            log(f"sharded {mode}, rank {i}: {_per_scan(r, n_scans)}")
+        per_scan = np.abs(a["t"] - st).max(axis=1)
+        d_matches = a["matches"].astype(np.int64) - s_matches
+        log(f"sharded {mode}: |dt| from phase 3 per scan (every 5th scan from 0) "
+            f"{[float(f'{x:.3g}') for x in per_scan[::5]]}, first over 1e-6 m at scan "
+            f"{int(np.argmax(per_scan > 1e-6)) if (per_scan > 1e-6).any() else None}; matches "
+            f"minus phase 3's at the scans that differ "
+            f"{ {int(i): int(d_matches[i]) for i in np.flatnonzero(d_matches)} }")
+        log(f"sharded {mode}: {dt:.3g} m from phase 3, aligned ATE {ate:.5f} m, ICP rounds "
+            f"{rounds} (the first scan's included: ICP always runs under a group), iterations "
+            f"equal to phase 3's: {np.array_equal(a['iters'], s_iters)}, matches equal: "
+            f"{np.array_equal(a['matches'], s_matches)}, diverged {int(a['diverged'].sum())}")
+        if not np.all(np.isfinite(a["t"])) or a["t"].shape != st.shape:
+            raise AssertionError(f"sharded {mode}: non-finite or misshapen poses")
+        if a["diverged"].any():
+            raise AssertionError(f"sharded {mode}: {int(a['diverged'].sum())} scans diverged")
+        want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
+                "gn_epilogue": cfg.icp_inner_iterations * rounds, "search_sorted": 2 * n_scans}
+        for i, r in enumerate(rs):
+            if r["launches"] != want:
+                raise AssertionError(f"sharded {mode}, rank {i}: launches {r['launches']} != "
+                                     f"the split schedule {want}")
+        if mode == "sp":
+            same = {f: np.array_equal(a[f], witness[f]) for f in witness}
+            log(f"sharded sp: bitwise the one-process witness of the split sums: {same}")
+            if not all(same.values()):
+                raise AssertionError(f"sharded sp: the ranks differ from the one-process "
+                                     f"witness of the split sums ({same}): something other "
+                                     f"than the sum order moves them")
+            if dt > SP_FROM_MAIN_M or not np.array_equal(a["iters"], s_iters):
+                raise AssertionError(f"sharded sp: {dt} m from phase 3 (bar {SP_FROM_MAIN_M}), "
+                                     f"or iterations differ")
+            if abs(ate - MAIN_PATH_ATE) > 1e-4:
+                raise AssertionError(f"sharded sp: ATE {ate} not within 1e-4 m of "
+                                     f"{MAIN_PATH_ATE}")
+        else:
+            if dt > 1e-3 or ate > ATE_CEILING:
+                raise AssertionError(f"sharded spatial: {dt} m from phase 3 or ATE {ate} m")
+            keys = [r["keys"] for r in rs]
+            union = np.sort(np.concatenate([k[k != 0x7FFFFFFF] for k in keys]))
+            if not (all(r["view_digest"] == a["view_digest"] for r in rs)
+                    and all(np.array_equal(r["view_live_keys"], union) for r in rs)):
+                raise AssertionError("sharded spatial: the ranks' halo views differ, or do not "
+                                     "hold both shards' keys")
+            if len(set().union(*[set(k[k != 0x7FFFFFFF].tolist()) for k in keys])) != len(union):
+                raise AssertionError("sharded spatial: the shards share a voxel")
+            vs_ = [r["view_search"] for r in rs]
+            for i, v in enumerate(vs_):
+                if v["bad_fields"] or v["foreign_matched"]:
+                    raise AssertionError(f"sharded spatial, rank {i}: the halo view's search "
+                                         f"differs from the replicated map's in "
+                                         f"{v['bad_fields']} (or matched a query it does not "
+                                         f"own: {v['foreign_matched']})")
+            q_valid = lookup[4].cpu().numpy()
+            if not np.array_equal(sum(v["owned"].astype(np.int32) for v in vs_),
+                                  q_valid.astype(np.int32)):
+                raise AssertionError("sharded spatial: the ranks' owned queries are no "
+                                     "partition")
+            log(f"sharded spatial: on each rank the halo view's search bitwise the search on "
+                f"the merge of the gathered shards ({vs_[0]['replicated_rows']} rows), every "
+                f"field, for its owned queries (matched {[v['matched'] for v in vs_]} of "
+                f"{int(q_valid.sum())}), the owned queries a partition")
+            log(f"sharded spatial: final shards of {[int((k != 0x7FFFFFFF).sum()) for k in keys]}"
+                f" voxels (map_voxels {int(a['map_voxels'][-1])}, phase 3's "
+                f"{int((main_odo.state.keyframe.keys != 0x7FFFFFFF).sum())}); the halo views "
+                f"({a['view_rows']} rows) equal on both ranks and hold both shards")
+        results[mode] = dict(ms_per_scan=[r["ms_per_scan"] for r in rs],
+                             host_ms_per_scan=[r["host_ms_per_scan"] for r in rs],
+                             stats=[r["stats"] for r in rs], launches=a["launches"],
+                             from_phase3_m=dt, ate=ate)
+
+    # (c) dp: every lane bitwise phase 7's
+    fd = fleet["diags"]
+    fk = fleet["state"].keyframe
+    for i, r in enumerate(ranks):
+        a = r["dp"]
+        lo, hi = a["lanes"]
+        same = [np.array_equal(a["t"], fd.pose.t[:, lo:hi].cpu().numpy()),
+                np.array_equal(a["q"], fd.pose.q[:, lo:hi].cpu().numpy()),
+                np.array_equal(a["iters"], fd.icp_iterations[:, lo:hi].cpu().numpy())]
+        same += [np.array_equal(a[f], getattr(fk, f)[lo:hi].cpu().numpy())
+                 for f in ("keys", "count", "origin")]
+        log(f"sharded dp, rank {i} (lanes {lo}-{hi - 1}): {_per_scan(a, n_scans)}")
+        if not all(same):
+            raise AssertionError(f"sharded dp, rank {i}: lanes {lo}-{hi - 1} differ from phase "
+                                 f"7's (t, q, iterations, keys, count, origin equal = {same})")
+        it = a["iters"]
+        want = {"match_rows": int(it.max(axis=1).sum()),
+                "jtwj_accumulate": cfg.icp_inner_iterations * int(it.max(axis=1).sum()),
+                "gn_epilogue": 0, "search_sorted": int(np.sum(it.max(axis=1) > 0)) + n_scans}
+        if a["launches"] != want:
+            raise AssertionError(f"sharded dp, rank {i}: launches {a['launches']} != the "
+                                 f"batched schedule {want}")
+    log("sharded dp: every lane bitwise phase 7's (poses, iterations, final keys, counts, "
+        "origin)")
+    results["dp"] = dict(ms_per_scan=[r["dp"]["ms_per_scan"] for r in ranks],
+                         host_ms_per_scan=[r["dp"]["host_ms_per_scan"] for r in ranks],
+                         stats=[r["dp"]["stats"] for r in ranks],
+                         launches=ranks[0]["dp"]["launches"])
+
+    # (d) the edge-sharded refine against phase 9's loop (direct)
+    ref = refine["loop_direct"]
+    tol = 5e-3 * ref["correction_m"]
+    d_t = max(float(np.abs(r["refine"]["t"] - ref["t"]).max()) for r in ranks)
+    d_ranks = float(np.abs(ranks[0]["refine"]["t"] - ranks[1]["refine"]["t"]).max())
+    log(f"sharded refine (2 ranks, edges split, 10 iterations): {d_t:.3g} m from phase 9's "
+        f"refine (bar {tol:.3g}: 5e-3 of the correction), ranks {d_ranks:.3g} apart; "
+        f"{ranks[0]['refine']['ms']:.1f} ms, {ranks[0]['refine']['stats']['collectives']} "
+        f"collectives")
+    if d_t > tol or d_ranks != 0.0:
+        raise AssertionError(f"sharded refine: {d_t} m from phase 9 (bar {tol}) or ranks "
+                             f"{d_ranks} apart")
+    results["refine"] = dict(from_phase9_m=d_t, ms=ranks[0]["refine"]["ms"])
+
+    # the NCCL branch: a world of one on the card
+    (nc,) = mesh_lib.run_ranks(nccl_rank, 1, device="cuda", timeout=300)
+    ok = (nc["backend"] == "nccl" and nc["live"]
+          and np.array_equal(nc["psum"], np.arange(6, dtype=np.float32))
+          and np.array_equal(nc["recv"], np.arange(6, dtype=np.float32))
+          and nc["stats"]["collectives"] == 1 and nc["stats"]["exchanges"] == 1
+          and nc["stats"]["staged_bytes"] == 0)
+    if not ok:
+        raise AssertionError(f"sharded: the NCCL world of one failed its checks: {nc}")
+    log(f"sharded: a world of one picks {nc['backend']}; psum and ppermute_from (to itself) "
+        f"ran through it ({nc['stats']['collectives']} all-reduce, "
+        f"{nc['stats']['exchanges']} exchange, no staging); multi-card NCCL is not measured "
+        f"here (one card)")
+    results["launches"] = {mode: results[mode]["launches"] for mode in ("sp", "spatial", "dp")}
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1747,6 +2420,8 @@ def main() -> int:
     live_path = run_live_path(bench, main_diags, single_ms, device)
     run_live_cli(bench)
     refine = run_refine(main_diags, device)
+    sharded = run_sharded(bench, main_diags, odo, fleet, refine, device)
+    epilogue = sharded["kernel"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_reference_parity"] = parity[k["name"]]
@@ -1757,6 +2432,13 @@ def main() -> int:
         k["launches_refine"] = refine["launches"][k["name"]]
         k.update(fleet_numbers[k["name"]])
         k["kernel_ms"] = k["ms"]
+    for k in kernels + [epilogue]:
+        for mode in ("sp", "spatial", "dp"):
+            k[f"launches_sharded_{mode}"] = sharded["launches"][mode][k["name"]]
+    # the epilogue entry point runs only on the split step's paths: its
+    # launches are the sp path's (per rank), and 0 on every phase 1-9 path
+    epilogue["launches"] = epilogue["launches_sharded_sp"]
+    kernels.append(epilogue)
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ analogue, lidar_odometry.cpp:75), including ``map_saturated``:
   python -m lidar_odometry_demo_tpu_torch.cli sim --scans 100 --out traj.tum
   python -m lidar_odometry_demo_tpu_torch.cli pcd-dir /path/to/scans --out traj.tum
   python -m lidar_odometry_demo_tpu_torch.cli fleet --batch 8 --scans 40
+  python -m lidar_odometry_demo_tpu_torch.cli fleet --batch 4 --dp 2 --sp 2 --device cpu
   python -m lidar_odometry_demo_tpu_torch.cli live --port 2368 --out live.tum
   python -m lidar_odometry_demo_tpu_torch.cli refine traj.tum --out refined.tum
   python -m lidar_odometry_demo_tpu_torch.cli sim --device cpu --scans 5
@@ -131,64 +132,107 @@ def cmd_pcd_dir(args):
                 keyframe_out=args.keyframe_out, quiet=args.quiet)
 
 
-def cmd_fleet(args):
-    """Batched multi-sequence odometry: B simulated drives (seed + b, yaw
-    rate 0.03 (b + 1)) stepped together on one device, one TUM per lane
-    (the JAX CLI's `fleet`, the production serving shape, on one card)."""
+def _fleet_lanes(cfg, args, mesh) -> dict:
+    """This rank's share of `fleet`: simulate its lanes' drives (seed + b,
+    yaw rate 0.03 (b + 1)), step them together (with its sp group, if any),
+    and gather every lane's poses and ground truth onto every rank. Returns
+    {"t", "q": (S, B, 3/4), "gt": (S, B, 3), "seconds": this rank's run}."""
     import torch
     from scipy.spatial.transform import Rotation
 
-    from lidar_odometry_demo_tpu_torch.device import resolve_device
-    from lidar_odometry_demo_tpu_torch.io import trajectory
     from lidar_odometry_demo_tpu_torch.io.simulator import simulate_sequence
     from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan, scan_from_numpy
     from lidar_odometry_demo_tpu_torch.parallel import batched
+    from lidar_odometry_demo_tpu_torch.pipeline import odometry
 
-    dp = 1 if args.dp is None else args.dp
-    if dp > 1 or args.sp > 1:
-        raise SystemExit(f"fleet: --dp {dp} --sp {args.sp} needs the sharded modes (a dp x sp "
-                         f"device mesh), which this port does not have yet; it runs dp=1 x "
-                         f"sp=1 on one device")
-    cfg = _load_config(args)
-    dev = resolve_device(args.device)
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    print(f"mesh: dp={dp} x sp={args.sp} over {n_dev} devices", file=sys.stderr)
-
-    drives = [
-        simulate_sequence(num_scans=args.scans, width=cfg.scan_width, seed=args.seed + b,
-                          speed=args.speed, yaw_rate=0.03 * (b + 1))
-        for b in range(args.batch)
-    ]
-    # (S, B, ...) scans on the device, as the JAX runner takes them
+    dev = mesh.device
+    mine = range(args.batch)[mesh.lanes(args.batch)]
+    drives = [simulate_sequence(num_scans=args.scans, width=cfg.scan_width, seed=args.seed + b,
+                                speed=args.speed, yaw_rate=0.03 * (b + 1)) for b in mine]
+    # (S, L, ...) scans of this rank's L lanes on the device
     lanes = [[scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
                               cfg.max_raw_points, dev) for s in d.scans] for d in drives]
     scans_b = LidarScan(*(
         torch.stack([torch.stack([getattr(lane[i], f) for lane in lanes])
                      for i in range(args.scans)]) for f in LidarScan._fields))
-    state_b = batched.init_batched_state(cfg, args.batch, dev)
-    run = batched.make_batched_sequence_runner(cfg)
+    state_b = batched.init_batched_state(cfg, len(mine), dev)
+    step = batched.make_batched_step(cfg, mesh)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    _, diags = run(state_b, scans_b)
+    diags = []
+    for i in range(args.scans):
+        state_b, diag = step(state_b, LidarScan(*(x[i] for x in scans_b)))
+        diags.append(diag)
+    diags = odometry.stack_diagnostics(diags)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    gt = []
+    for d in drives:
+        g0 = Rotation.from_quat([d.gt_q[0][1], d.gt_q[0][2], d.gt_q[0][3], d.gt_q[0][0]])
+        gt.append(g0.inv().apply(d.gt_t - d.gt_t[0]))
+    return {"t": batched.gather_lanes(mesh, diags.pose.t.cpu().numpy()),
+            "q": batched.gather_lanes(mesh, diags.pose.q.cpu().numpy()),
+            "gt": batched.gather_lanes(mesh, np.stack(gt, axis=1)),
+            "seconds": max(mesh.all_gather_object(seconds)),
+            "devices": mesh.all_gather_object(str(dev)), "backend": mesh.backend}
+
+
+def _fleet_rank(cfg, args) -> dict:
+    """One spawned rank of `fleet` (parallel.mesh.run_ranks), on the device
+    run_ranks gave the rank."""
+    from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
+
+    return _fleet_lanes(cfg, args, mesh_lib.make_mesh(args.dp, args.sp))
+
+
+def cmd_fleet(args):
+    """Batched multi-sequence odometry: B simulated drives (seed + b, yaw
+    rate 0.03 (b + 1)) stepped together over a dp x sp mesh of ranks, one
+    TUM per lane (the JAX CLI's `fleet`, the production serving shape).
+
+    dp x sp = 1 runs here; above 1 it joins the group a launcher set up
+    (RANK and WORLD_SIZE in the environment, e.g. torchrun) or else spawns
+    its own ranks (parallel.mesh.run_ranks). Rank 0 prints."""
+    from lidar_odometry_demo_tpu_torch.device import resolve_device
+    from lidar_odometry_demo_tpu_torch.io import trajectory
+    from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
+
+    args.dp = 1 if args.dp is None else args.dp
+    if args.dp < 1 or args.sp < 1:
+        raise SystemExit(f"fleet: --dp {args.dp} --sp {args.sp}: a mesh axis needs at least "
+                         f"one rank")
+    if args.batch % args.dp:
+        raise SystemExit(f"fleet: --batch {args.batch} is not divisible by --dp {args.dp} "
+                         f"(each dp rank steps batch / dp lanes)")
+    cfg = _load_config(args)
+    dev = resolve_device(args.device)
+    world = args.dp * args.sp
+    if world == 1:
+        mesh = mesh_lib.make_mesh(1, 1, dev)
+        res, rank = _fleet_lanes(cfg, args, mesh), 0
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        from lidar_odometry_demo_tpu_torch.parallel import multihost
+
+        mesh = mesh_lib.make_mesh(args.dp, args.sp, multihost.initialize(device_type=dev.type))
+        res, rank = _fleet_lanes(cfg, args, mesh), mesh.rank
+    else:
+        res, rank = mesh_lib.run_ranks(_fleet_rank, world, cfg, args, device=dev.type)[0], 0
+    if rank != 0:
+        return
+    print(f"mesh: dp={args.dp} x sp={args.sp} over {len(set(res['devices']))} devices "
+          f"({world} ranks, backend {res['backend']})", file=sys.stderr)
+    dt = res["seconds"]
     total = args.scans * args.batch
     print(f"fleet: {args.batch} sequences x {args.scans} scans in {dt:.1f}s "
           f"= {total / dt:.1f} scans/s", file=sys.stderr)
-
-    t_all, q_all = diags.pose.t.cpu().numpy(), diags.pose.q.cpu().numpy()
     for b in range(args.batch):
         out = f"{args.out_prefix}{b}.tum"
-        t_b, q_b = t_all[:, b], q_all[:, b]
+        t_b, q_b = res["t"][:, b], res["q"][:, b]
         trajectory.write_tum(out, [i * 0.1 for i in range(args.scans)], t_b, q_b)
-        g0 = Rotation.from_quat([
-            drives[b].gt_q[0][1], drives[b].gt_q[0][2], drives[b].gt_q[0][3], drives[b].gt_q[0][0]
-        ])
-        gt_rel = g0.inv().apply(drives[b].gt_t - drives[b].gt_t[0])
-        ate = trajectory.ate_rmse(t_b, gt_rel, align=True)
+        ate = trajectory.ate_rmse(t_b, res["gt"][:, b], align=True)
         print(f"  lane {b}: {out}  aligned ATE {ate:.3f} m")
 
 
@@ -273,15 +317,15 @@ def main(argv=None):
         sp.add_argument("--keyframe-out")
         sp.add_argument("--quiet", action="store_true")
 
-    pf = sub.add_parser("fleet", help="batched multi-sequence odometry on one device")
+    pf = sub.add_parser("fleet", help="batched multi-sequence odometry over dp x sp ranks")
     pf.add_argument("--batch", type=int, default=4)
     pf.add_argument("--scans", type=int, default=20)
     pf.add_argument("--seed", type=int, default=0)
     pf.add_argument("--speed", type=float, default=3.0)
     pf.add_argument("--dp", type=int, default=None,
-                    help="sequences' device axis; only 1 (the sharded modes are not ported)")
+                    help="ranks over the sequences (default 1); --batch must divide by it")
     pf.add_argument("--sp", type=int, default=1,
-                    help="ICP's device axis; only 1 (the sharded modes are not ported)")
+                    help="ranks sharing each sequence's ICP, each on a slice of its points")
     pf.add_argument("--out-prefix", default="fleet_")
     pf.set_defaults(fn=cmd_fleet)
 

@@ -1,6 +1,6 @@
 // Kernel K2: one whole Gauss-Newton step of the point-to-plane ICP in one
 // launch, or (epilogue off) the robust normal equations H = J^T W J,
-// b = J^T W r alone.
+// b = J^T W r alone, at the same pose.
 //
 // Replaces the TPU kernel lidar_odometry_demo_tpu/ops/pallas/jtwj.py
 // (_jtwj_kernel / jtwj_accumulate) and, in step mode, the scalar work the
@@ -32,9 +32,9 @@
 // order depend on Q alone and no atomic adds floats, so two runs on the same
 // input are bitwise equal. float32 only; no tensor cores.
 //
-// Step mode: R comes from the pose's quaternion, read from device memory
-// (se3.quat_to_matrix's formula), and thread 0 of rank 0 then runs, as
-// icp._normal_equations and _gn_steps do on tensors: the translation prior,
+// In both modes R comes from the pose's quaternion, read from device memory
+// (se3.quat_to_matrix's formula). In step mode thread 0 of rank 0 then
+// runs, as icp._normal_equations and _gn_steps do on tensors: the translation prior,
 // H + damping diag(H) + 1e-9 I, the unrolled Cholesky solve with the
 // clamp_min(., 1e-12) pivot guard, delta = -x, apply_delta (quat_exp with
 // its small-angle branch, quat_mul, quat_normalize) and |delta|. Every
@@ -50,6 +50,14 @@
 // copy its input pose and step norm to its output slot and return before
 // any barrier (H and b are not written), so the ICP loop needs no tensor op
 // between its steps to hold a finished lane still.
+//
+// Split step (a group of ranks, each holding part of the correspondences):
+// the sum over the ranks must come between the accumulation and the solve.
+// The step then is this kernel with the epilogue off (H and b at the pose,
+// R derived as in step mode, so a group of one gives the fused step's bits),
+// the caller's all-reduce of H and b, and the second entry point,
+// gn_epilogue_kernel: one thread per lane runs the same step_epilogue on the
+// summed H and b.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -234,12 +242,24 @@ __device__ void step_epilogue(const float* sums, const float* t, const float* q,
   pose_out[7] = sqrtf(dd);
 }
 
+// An inactive lane's output: its input pose and step norm, unchanged (read
+// whole before the first write, so pose_out may alias the input pose).
+__device__ void keep_pose(const float* t, const float* q, float norm, float* pose_out) {
+  float keep[8];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) keep[i] = t[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) keep[3 + i] = q[i];
+  keep[7] = norm;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) pose_out[i] = keep[i];
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 gn_step_kernel(const float* __restrict__ source_local,
                const float* __restrict__ plane_origin,
                const float* __restrict__ plane_normal,
-               const unsigned char* __restrict__ valid, const float* R_in,
-               const float* t_in, int t_stride, const float* q_in, int q_stride,
+               const unsigned char* __restrict__ valid, const float* t_in, int t_stride, const float* q_in, int q_stride,
                const float* norm_in, int norm_stride, const unsigned char* active,
                const float* guess_t, int Q, float huber_delta, float prior_w,
                float damping, float* __restrict__ H_out, float* __restrict__ b_out,
@@ -255,26 +275,18 @@ gn_step_kernel(const float* __restrict__ source_local,
     plane_origin += lane * 3 * Q;
     plane_normal += lane * 3 * Q;
     valid += lane * Q;
-    if (R_in != nullptr) R_in += lane * 9;
     t_in += lane * t_stride;
-    if (q_in != nullptr) q_in += lane * q_stride;
+    q_in += lane * q_stride;
     if (guess_t != nullptr) guess_t += lane * 3;
     H_out += lane * 36;
     b_out += lane * 6;
     if (pose_out != nullptr) pose_out += lane * 8;
     if (active != nullptr && active[lane] == 0) {
-      // a finished lane: its pose and step norm stay as they are. The whole
-      // cluster leaves here, before the barrier's first phase.
-      if (rank == 0 && threadIdx.x == 0) {
-        float keep[8];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) keep[i] = t_in[i];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) keep[3 + i] = q_in[i];
-        keep[7] = norm_in[lane * norm_stride];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) pose_out[i] = keep[i];
-      }
+      // a finished lane: its pose and step norm stay as they are (where a
+      // pose is written at all). The whole cluster leaves here, before the
+      // barrier's first phase.
+      if (rank == 0 && threadIdx.x == 0 && pose_out != nullptr)
+        keep_pose(t_in, q_in, norm_in[lane * norm_stride], pose_out);
       return;
     }
   }
@@ -293,17 +305,14 @@ gn_step_kernel(const float* __restrict__ source_local,
     if (i0 + u * stride < Q)
       rows[u] = load_row(source_local, plane_origin, plane_normal, valid, i0 + u * stride);
   const float t0 = t_in[0], t1 = t_in[1], t2 = t_in[2];
-  float R[9], q[4] = {0.f, 0.f, 0.f, 0.f}, g[3] = {0.f, 0.f, 0.f};
-  if (R_in != nullptr) {
+  float R[9], q[4], g[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 9; ++i) R[i] = R_in[i];
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q[i] = q_in[i];
+  for (int i = 0; i < 4; ++i) q[i] = q_in[i];
+  if (guess_t != nullptr) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) g[i] = guess_t[i];
-    quat_to_matrix(q, R);
   }
+  quat_to_matrix(q, R);
 
   float acc[kSums];
 #pragma unroll
@@ -377,21 +386,63 @@ gn_step_kernel(const float* __restrict__ source_local,
   }
 }
 
+// The epilogue entry point: one thread per lane runs step_epilogue on a
+// given H (6, 6) and b (6,) (the sums over the ranks of an sp or spatial
+// group), reading the 27 sums from H's upper triangle and b in the order the
+// fused kernel stores them, so on the H and b of an epilogue-off launch it
+// gives the fused step's pose and step norm bit for bit.
+__global__ void __launch_bounds__(32)
+gn_epilogue_kernel(const float* __restrict__ H, const float* __restrict__ b,
+                   const float* t_in, int t_stride, const float* q_in, int q_stride,
+                   const float* norm_in, int norm_stride, const unsigned char* active,
+                   const float* __restrict__ guess_t, int B, float prior_w, float damping,
+                   float* pose_out) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  t_in += (long long)lane * t_stride;
+  q_in += (long long)lane * q_stride;
+  pose_out += lane * 8;
+  if (active != nullptr && active[lane] == 0) {
+    keep_pose(t_in, q_in, norm_in[(long long)lane * norm_stride], pose_out);
+    return;
+  }
+  H += lane * 36;
+  b += lane * 6;
+  guess_t += lane * 3;
+  float sums[kSums], t[3], q[4], g[3];
+  int j = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int c = a; c < 6; ++c) sums[j++] = H[a * 6 + c];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) sums[21 + a] = b[a];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t[i] = t_in[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = q_in[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) g[i] = guess_t[i];
+  step_epilogue(sums, t, q, g, prior_w, damping, pose_out);
+}
+
 }  // namespace
 
-// One launch for B lanes. Step mode: R = nullptr, q and guess_t given,
+// One launch for B lanes at the pose (t, q). Step mode: guess_t given,
 // pose_out the (B, 8) floats (t, q, |delta|) of the new poses; t and q (and
 // norm_in) are read at lane strides t_stride, q_stride (norm_stride), so a
 // pose may be a view of an earlier step's output; active (B,) and norm_in
-// may be nullptr (every lane active). Normal-equations mode: R (B, 3, 3)
-// given, q, guess_t, active and pose_out nullptr. H (B, 6, 6) and b (B, 6)
-// are written for every active lane, before the prior and the damping.
+// may be nullptr (every lane active). Epilogue off (H and b alone, also
+// the first part of a step split around a sum over ranks): guess_t,
+// norm_in and pose_out nullptr, active as in step mode. H (B, 6, 6) and
+// b (B, 6) are written for every active lane, before the prior and the
+// damping.
 // pose_out may alias t or q: every block reads the pose before it arrives at
 // the cluster barrier's second phase, and rank 0 writes pose_out only after
 // its wait on that phase (an inactive lane's one thread reads, then writes).
 extern "C" int gn_step_launch(const void* source_local, const void* plane_origin,
                               const void* plane_normal, const void* valid,
-                              const void* R, const void* t, int t_stride, const void* q,
+                              const void* t, int t_stride, const void* q,
                               int q_stride, const void* norm_in, int norm_stride,
                               const void* active, const void* guess_t, int B, int Q,
                               float huber_delta, float prior_w, float damping, void* H,
@@ -413,9 +464,26 @@ extern "C" int gn_step_launch(const void* source_local, const void* plane_origin
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, gn_step_kernel, (const float*)source_local, (const float*)plane_origin,
-      (const float*)plane_normal, (const unsigned char*)valid, (const float*)R,
+      (const float*)plane_normal, (const unsigned char*)valid,
       (const float*)t, t_stride, (const float*)q, q_stride, (const float*)norm_in,
       norm_stride, (const unsigned char*)active, (const float*)guess_t, Q, huber_delta,
       prior_w, damping, (float*)H, (float*)b, (float*)pose_out);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The epilogue alone for B lanes: H (B, 6, 6) and b (B, 6) contiguous (the
+// upper triangle of H is read), t, q (and norm_in) at lane strides as in
+// gn_step_launch, guess_t (B, 3), pose_out (B, 8); active and norm_in may be
+// nullptr (every lane active).
+extern "C" int gn_epilogue_launch(const void* H, const void* b, const void* t, int t_stride,
+                                  const void* q, int q_stride, const void* norm_in,
+                                  int norm_stride, const void* active, const void* guess_t,
+                                  int B, float prior_w, float damping, void* pose_out,
+                                  void* stream) {
+  if (B == 0) return 0;
+  gn_epilogue_kernel<<<(B + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
+      (const float*)H, (const float*)b, (const float*)t, t_stride, (const float*)q, q_stride,
+      (const float*)norm_in, norm_stride, (const unsigned char*)active, (const float*)guess_t,
+      B, prior_w, damping, (float*)pose_out);
+  return (int)cudaGetLastError();
 }

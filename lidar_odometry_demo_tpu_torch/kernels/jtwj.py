@@ -10,11 +10,17 @@ bytes' or the flops'; the kernel is one thread-block cluster with a
 fixed-order, atomic-free reduction through distributed shared memory, so
 its result is bitwise repeatable (see the source's note).
 
-Two entry points on the one kernel: `gn_step` (the whole step, the main
-path) and `jtwj_accumulate` (H and b alone, the epilogue off). Both count
-their launches in `jtwj_accumulate.launches`. On CPU tensors each runs its
-plain version; on CUDA tensors it launches the kernel or raises. There is
-no fallback between the two.
+Two entry points on the one kernel, both at a pose (t, q; R derived from q
+in-kernel): `gn_step` (the whole step, the main path) and `jtwj_accumulate`
+(H and b alone, the epilogue off); both count their launches in
+`jtwj_accumulate.launches`. A step split around a sum over ranks (an sp or
+spatial group, ops/icp.py) is `jtwj_accumulate`, the group's all-reduce of
+`GnWork.hb`, then `gn_epilogue`: the source's second kernel, which runs the
+fused kernel's epilogue (the prior, the damping, the solve and the pose
+update) on the summed H and b; it counts in `gn_epilogue.launches`. Since
+both of K2's launches derive R alike, a group of one gives the fused
+step's bits. On CPU tensors each runs its plain version; on CUDA tensors
+it launches its kernel or raises. There is no fallback between the two.
 
 Lanes: every argument may carry a leading lane axis B (independent
 systems); one launch runs B clusters. `gn_step` then takes a (B,) `active`
@@ -130,23 +136,52 @@ def gn_step_plain(corr, pose: se3.Pose, guess_t: torch.Tensor, cfg, *,
     R = se3.quat_to_matrix(pose.q)
     H0, b0 = jtwj_plain(corr.source_local, corr.plane_origin, corr.plane_normal,
                         corr.valid, R, pose.t, huber_delta=cfg.icp_huber_delta)
+    new_pose, norm = _solve_and_update(H0, b0, pose, guess_t, cfg)
+    return new_pose, norm, H0, b0
+
+
+def _solve_and_update(H0, b0, pose: se3.Pose, guess_t: torch.Tensor, cfg):
+    """The step after the normal equations (one lane): the translation
+    prior, H + damping diag(H) + 1e-9 I, solve_spd_6x6, apply_delta and
+    |delta|."""
     H, b = add_prior(H0, b0, pose.t, guess_t, prior_weight(cfg))
     eye = torch.eye(6, dtype=torch.float32, device=H.device)
     H = H + cfg.icp_damping * torch.diag(torch.diag(H)) + 1e-9 * eye
     delta = -solve_spd_6x6(H, b)
-    return se3.apply_delta(pose, delta), se3.norm(delta), H0, b0
+    return se3.apply_delta(pose, delta), se3.norm(delta)
+
+
+def gn_epilogue_plain(H, b, pose: se3.Pose, guess_t: torch.Tensor, cfg, *,
+                      step_norm: torch.Tensor | None = None,
+                      active: torch.Tensor | None = None):
+    """The epilogue entry point's plain version: `gn_step_plain` after its
+    normal equations, on a given H (6, 6) and b (6,) (before the prior),
+    with H read from its upper triangle as the kernel reads it (a sum over
+    ranks need not keep H's two triangles bitwise equal). Returns (pose,
+    step_norm); with a lane axis, per lane, holding an inactive lane's pose
+    and step norm as `gn_step_plain` does."""
+    if b.dim() == 2:
+        new_pose, norm = lane_map(gn_epilogue_plain, b.shape[0], H, b, pose, guess_t, cfg)
+        if active is not None:
+            new_pose = se3.pose_where(active, new_pose, pose)
+            norm = torch.where(active, norm, step_norm)
+        return new_pose, norm
+    upper = torch.ones((6, 6), dtype=torch.bool, device=H.device).triu()
+    return _solve_and_update(torch.where(upper, H, H.T), b, pose, guess_t, cfg)
 
 
 class GnWork(NamedTuple):
     """Outputs of `steps` kernel steps, allocated once per ICP `align` and
     reused by every round: slot k of `poses` holds step k's (t, q, |delta|)
     of every lane; H and b the last step's. `slots` are the per-step
-    (Pose, step_norm) views, made once."""
+    (Pose, step_norm) views, made once. H and b are views into one buffer,
+    `hb`, so a split step sums both over its ranks in one all-reduce."""
 
     poses: torch.Tensor  # (steps, *lead, 8) float32
-    H: torch.Tensor      # (*lead, 6, 6)
-    b: torch.Tensor      # (*lead, 6)
+    H: torch.Tensor      # (*lead, 6, 6), a view of hb
+    b: torch.Tensor      # (*lead, 6), a view of hb
     slots: tuple
+    hb: torch.Tensor     # (42 B,): every lane's H, then every lane's b
 
     @staticmethod
     def empty(steps: int, device, lead: tuple = ()) -> "GnWork":
@@ -155,8 +190,10 @@ class GnWork(NamedTuple):
         poses = torch.empty((steps, *lead, 8), **f32)
         slots = tuple((se3.Pose(poses[k, ..., :3], poses[k, ..., 3:7]), poses[k, ..., 7])
                       for k in range(steps))
-        return GnWork(poses, torch.empty((*lead, 6, 6), **f32), torch.empty((*lead, 6), **f32),
-                      slots)
+        n = lanes(lead)
+        hb = torch.empty((42 * n,), **f32)
+        return GnWork(poses, hb[:36 * n].view(*lead, 6, 6), hb[36 * n:].view(*lead, 6), slots,
+                      hb)
 
 
 def _corr_specs(source_local, plane_origin, plane_normal, valid):
@@ -174,7 +211,7 @@ def _lane_stride(x: torch.Tensor, lead: tuple) -> int:
 
 def _launcher():
     return _build.c_function("jtwj", "gn_step_launch",
-                             [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p,
+                             [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                                                       ctypes.c_int, ctypes.c_void_p,
                                                       ctypes.c_int]
                              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
@@ -216,7 +253,7 @@ def gn_step(corr, pose: se3.Pose, guess_t: torch.Tensor, cfg, *,
         raise ValueError(f"work holds lanes {tuple(work.H.shape[:-2])}, the step {lead}")
     _build.launch(_launcher(), dev, corr.source_local.data_ptr(),
                   corr.plane_origin.data_ptr(), corr.plane_normal.data_ptr(),
-                  corr.valid.data_ptr(), None, pose.t.data_ptr(), _lane_stride(pose.t, lead),
+                  corr.valid.data_ptr(), pose.t.data_ptr(), _lane_stride(pose.t, lead),
                   pose.q.data_ptr(), _lane_stride(pose.q, lead),
                   None if active is None else step_norm.data_ptr(),
                   0 if active is None else _lane_stride(step_norm, lead),
@@ -229,30 +266,91 @@ def gn_step(corr, pose: se3.Pose, guess_t: torch.Tensor, cfg, *,
     return new_pose, step_norm, work.H, work.b
 
 
-def jtwj_accumulate(source_local, plane_origin, plane_normal, valid, R, t, *,
-                    huber_delta: float):
-    """K2 with the epilogue off, (H, b) without the prior: the plain version
-    on CPU tensors, the CUDA kernel on CUDA ones.
+def jtwj_accumulate(corr, pose: se3.Pose, *, huber_delta: float, work: GnWork | None = None,
+                    active: torch.Tensor | None = None):
+    """K2 with the epilogue off: (H, b) without the prior at `pose`, R
+    derived from pose.q as the whole step derives it (also the first part
+    of a step split around a sum over ranks). The plain version on CPU
+    tensors, one launch on CUDA ones.
 
-    source_local / plane_origin / plane_normal (Q, 3) float32, valid (Q,)
-    bool, R (3, 3) and t (3,) float32, each with an optional leading lane
-    axis B; any Q.
+    corr: a Correspondence (source_local / plane_origin / plane_normal
+    (Q, 3) float32, valid (Q,) bool, any Q); pose (t (3,), q (4,)); each
+    may carry a leading lane axis B. H and b are written into `work.H` and
+    `work.b` where a workspace is given (new tensors otherwise) and
+    returned. On CUDA an inactive lane (`active`, (B,) bool) writes
+    nothing; on CPU tensors every lane is written.
     """
-    if source_local.device.type == "cpu":
-        return jtwj_plain(source_local, plane_origin, plane_normal, valid, R, t,
-                          huber_delta=huber_delta)
-    lead, Q, specs = _corr_specs(source_local, plane_origin, plane_normal, valid)
-    check_tensors(*specs, (R, "R", torch.float32, (*lead, 3, 3)),
-                  (t, "t", torch.float32, (*lead, 3)))
-    dev = source_local.device
-    H = torch.empty((*lead, 6, 6), dtype=torch.float32, device=dev)
-    b = torch.empty((*lead, 6), dtype=torch.float32, device=dev)
-    _build.launch(_launcher(), dev, source_local.data_ptr(), plane_origin.data_ptr(),
-                  plane_normal.data_ptr(), valid.data_ptr(), R.data_ptr(), t.data_ptr(),
-                  3, None, 0, None, 0, None, None, lanes(lead), Q, float(huber_delta), 0.0,
-                  0.0, H.data_ptr(), b.data_ptr(), None)
+    if corr.source_local.device.type == "cpu":
+        H, b = jtwj_plain(*corr, se3.quat_to_matrix(pose.q), pose.t, huber_delta=huber_delta)
+        if work is None:
+            return H, b
+        work.H.copy_(H)
+        work.b.copy_(b)
+        return work.H, work.b
+    lead, Q, specs = _corr_specs(*corr)
+    if active is not None:
+        if not lead:
+            raise ValueError("active needs a lane axis")
+        specs.append((active, "active", torch.bool, lead))
+    dev = corr.source_local.device
+    if work is None:
+        work = GnWork.empty(1, dev, lead)
+    check_tensors(*specs, (pose.t, "pose.t", torch.float32, (*lead, 3), len(lead)),
+                  (pose.q, "pose.q", torch.float32, (*lead, 4), len(lead)),
+                  (work.H, "work.H", torch.float32, (*lead, 6, 6)),
+                  (work.b, "work.b", torch.float32, (*lead, 6)))
+    _build.launch(_launcher(), dev, corr.source_local.data_ptr(), corr.plane_origin.data_ptr(),
+                  corr.plane_normal.data_ptr(), corr.valid.data_ptr(), pose.t.data_ptr(),
+                  _lane_stride(pose.t, lead), pose.q.data_ptr(), _lane_stride(pose.q, lead),
+                  None, 0, None if active is None else active.data_ptr(), None, lanes(lead), Q,
+                  float(huber_delta), 0.0, 0.0, work.H.data_ptr(), work.b.data_ptr(), None)
     jtwj_accumulate.launches += 1
-    return H, b
+    return work.H, work.b
 
 
 jtwj_accumulate.launches = 0
+
+
+def gn_epilogue(H, b, pose: se3.Pose, guess_t: torch.Tensor, cfg, *, work: GnWork,
+                slot: int = 0, step_norm: torch.Tensor | None = None,
+                active: torch.Tensor | None = None):
+    """K2's epilogue entry point: the prior, the damping, the 6x6 solve and
+    the pose update of one Gauss-Newton step on a given H (6, 6) and b (6,)
+    (before the prior; H's upper triangle is read), each with an optional
+    leading lane axis B, as `gn_step` takes them (`active` and `step_norm`
+    too). On CUDA one launch (a thread per lane), the new pose and step norm
+    written into slot `slot` of `work` and returned as views; on CPU tensors
+    `gn_epilogue_plain`. Returns (pose, step_norm)."""
+    if b.device.type == "cpu":
+        return gn_epilogue_plain(H, b, pose, guess_t, cfg, step_norm=step_norm, active=active)
+    lead = tuple(b.shape[:-1])
+    specs = [(H, "H", torch.float32, (*lead, 6, 6)), (b, "b", torch.float32, (*lead, 6)),
+             (pose.t, "pose.t", torch.float32, (*lead, 3), len(lead)),
+             (pose.q, "pose.q", torch.float32, (*lead, 4), len(lead)),
+             (guess_t, "guess_t", torch.float32, (*lead, 3))]
+    if active is not None:
+        if not lead:
+            raise ValueError("active needs a lane axis")
+        if step_norm is None:
+            raise ValueError("active needs the input step_norm of every lane")
+        specs += [(active, "active", torch.bool, lead),
+                  (step_norm, "step_norm", torch.float32, lead, 1)]
+    check_tensors(*specs)
+    if work.poses.shape[1:] != (*lead, 8):
+        raise ValueError(f"work holds lanes {tuple(work.poses.shape[1:-1])}, the step {lead}")
+    fn = _build.c_function("jtwj", "gn_epilogue_launch",
+                           [ctypes.c_void_p] * 2 + [ctypes.c_void_p, ctypes.c_int] * 3
+                           + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float] * 2
+                           + [ctypes.c_void_p] * 2)
+    _build.launch(fn, b.device, H.data_ptr(), b.data_ptr(), pose.t.data_ptr(),
+                  _lane_stride(pose.t, lead), pose.q.data_ptr(), _lane_stride(pose.q, lead),
+                  None if active is None else step_norm.data_ptr(),
+                  0 if active is None else _lane_stride(step_norm, lead),
+                  None if active is None else active.data_ptr(), guess_t.data_ptr(),
+                  lanes(lead), float(prior_weight(cfg)), float(cfg.icp_damping),
+                  work.poses[slot].data_ptr())
+    gn_epilogue.launches += 1
+    return work.slots[slot]
+
+
+gn_epilogue.launches = 0

@@ -18,6 +18,16 @@
 The outer loop is Python control flow: each round reads its exit condition
 from the device (one synchronisation per round).
 
+Groups (the JAX package's `axis_name`): with a group of ranks (an sp group,
+each rank holding a slice of the queries, or a spatial group, each rank
+holding the queries it owns under a column-sharded map, `owner_fn`), the
+round's match count and cost sum are summed over the group in one
+all-reduce, and each Gauss-Newton step is split around the sum of H and b
+(kernels/jtwj.py `jtwj_accumulate`, the all-reduce, `gn_epilogue`), so every
+rank takes the same step and reads the same exit condition: a decision read
+from a rank's own values would desynchronise the group's collectives. A
+group of size 1 runs today's fused step.
+
 Lanes: `align` also takes B independent problems at once (a leading lane
 axis on the map, the queries and the guess), as the JAX package's
 `while_loop` under `vmap` does: rounds go on while any lane's condition
@@ -35,7 +45,9 @@ from typing import NamedTuple
 import torch
 
 from lidar_odometry_demo_tpu_torch.config import OdometryConfig
-from lidar_odometry_demo_tpu_torch.kernels.jtwj import GnWork, gn_step
+from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
+    GnWork, gn_epilogue, gn_step, jtwj_accumulate)
+from lidar_odometry_demo_tpu_torch.kernels.search import query_world
 from lidar_odometry_demo_tpu_torch.ops import se3
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
 
@@ -49,28 +61,48 @@ class IcpResult(NamedTuple):
 
 def _gn_steps(corr: vm.Correspondence, pose: se3.Pose, guess_t: torch.Tensor,
               cfg: OdometryConfig, work: GnWork | None = None,
-              step_norm: torch.Tensor | None = None, active: torch.Tensor | None = None):
+              step_norm: torch.Tensor | None = None, active: torch.Tensor | None = None,
+              group=None):
     """cfg.icp_inner_iterations Gauss-Newton steps on a fixed
     correspondence set (cloud_matcher.cpp:111,156-158): one K2 launch each
     on CUDA, with no tensor operation between them; step k writes slot k of
     `work` (allocated here if the caller has none). Over a lane axis, a
-    lane where `active` is false keeps `pose` and `step_norm`."""
+    lane where `active` is false keeps `pose` and `step_norm`. With a
+    `group` of more than one rank each step is split: H and b at the pose
+    (`jtwj_accumulate`), their sum over the group (one all-reduce of
+    `work.hb`), then the epilogue on the sums (`gn_epilogue`)."""
     n = cfg.icp_inner_iterations
     if work is None:
         work = GnWork.empty(n, pose.t.device, tuple(guess_t.shape[:-1]))
+    split = group is not None and group.size > 1
     for k in range(n):
-        pose, step_norm, _, _ = gn_step(corr, pose, guess_t, cfg, work=work, slot=k,
-                                        step_norm=step_norm, active=active)
+        if split:
+            jtwj_accumulate(corr, pose, huber_delta=cfg.icp_huber_delta, work=work,
+                            active=active)
+            group.psum(work.hb, "H,b")
+            pose, step_norm = gn_epilogue(work.H, work.b, pose, guess_t, cfg, work=work,
+                                          slot=k, step_norm=step_norm, active=active)
+        else:
+            pose, step_norm, _, _ = gn_step(corr, pose, guess_t, cfg, work=work, slot=k,
+                                            step_norm=step_norm, active=active)
     return pose, step_norm
 
 
-def make_align(cfg: OdometryConfig):
+def make_align(cfg: OdometryConfig, group=None, owner_fn=None):
     """align(map, query_xyz (Q, 3) local, query_valid (Q,), guess)
     -> IcpResult, mirroring CloudMatcher::align (cloud_matcher.cpp:105-178):
     with cfg.icp_cached_candidates the candidates are gathered once at the
     guess pose; without it every round re-searches the map at its pose.
     Every argument may carry a leading lane axis B; the result then has it
-    too (iterations, step norm and matches per lane)."""
+    too (iterations, step norm and matches per lane).
+
+    `group` (parallel/mesh.py Group): the ranks that share this problem,
+    each with its own queries (and, under a column-sharded map, its own
+    map view); the counts, cost sums, H and b are summed over it, so every
+    rank returns the same result. `owner_fn(m, q_world) -> bool mask`
+    restricts a rank to the queries it owns (parallel/spatial.py): at the
+    guess pose for the cached candidates, at the round's pose on the exact
+    path, so the queries stay partitioned at every pose."""
     voxel_size = cfg.keyframe_voxel_size
     max_dist = cfg.icp_max_correspondence_distance
     delta = cfg.icp_huber_delta
@@ -82,9 +114,11 @@ def make_align(cfg: OdometryConfig):
         lead = tuple(query_xyz.shape[:-2])
         Q = query_xyz.shape[-2]
         if cfg.icp_cached_candidates:
-            cand = vm.gather_candidates(
-                m, query_xyz, query_valid, guess.t,
-                se3.quat_to_matrix(guess.q), voxel_size=voxel_size)
+            Rg = se3.quat_to_matrix(guess.q)
+            if owner_fn is not None:  # the queries this rank owns at the guess
+                query_valid = query_valid & owner_fn(m, query_world(query_xyz, Rg, guess.t))
+            cand = vm.gather_candidates(m, query_xyz, query_valid, guess.t, Rg,
+                                        voxel_size=voxel_size)
         else:  # K3's candidates, rewritten every round
             cand_out = vm.CandidateSet.empty(Q, vm._lanes(m.max_points)[0], dev, lead)
         nrm_view = m.nrm  # derived once per scan, not once per round
@@ -120,7 +154,9 @@ def make_align(cfg: OdometryConfig):
                                            max_distance=max_dist, nrm_view=nrm_view,
                                            out=match_out)
             else:  # re-search the table at the current pose every round
-                corr = vm.find_correspondences(m, query_xyz, query_valid, t_now, R,
+                round_valid = query_valid if owner_fn is None else (
+                    query_valid & owner_fn(m, query_world(query_xyz, R, t_now)))
+                corr = vm.find_correspondences(m, query_xyz, round_valid, t_now, R,
                                                voxel_size=voxel_size, max_distance=max_dist,
                                                nrm_view=nrm_view, out=match_out,
                                                cand_out=cand_out)
@@ -131,6 +167,10 @@ def make_align(cfg: OdometryConfig):
             absr = torch.abs(r)
             hub = torch.where(absr <= delta, 0.5 * r * r, delta * (absr - 0.5 * delta))
             cost_sum = torch.sum(torch.where(corr.valid, hub, 0.0), dim=-1)
+            if group is not None and group.size > 1:  # one all-reduce of both
+                sums = group.psum(torch.stack([cost_sum, round_matches.to(torch.float32)]),
+                                  "matches,cost")
+                cost_sum, round_matches = sums[0], sums[1].to(torch.int32)
             cost = cost_sum / torch.clamp_min(round_matches.to(torch.float32), 1.0)
             improved = cost < best_cost * (1.0 - cfg.icp_stall_rel_tolerance)
             if active is None:
@@ -141,7 +181,8 @@ def make_align(cfg: OdometryConfig):
             best_pose = se3.pose_where(improved, pose, best_pose)
             best_matches = torch.where(improved, round_matches, best_matches)
             best_cost = torch.where(improved, cost, best_cost)
-            pose, step_norm = _gn_steps(corr, pose, guess.t, cfg, gn_work, step_norm, active)
+            pose, step_norm = _gn_steps(corr, pose, guess.t, cfg, gn_work, step_norm, active,
+                                        group)
             # the round's one device read: every lane's exit conditions
             flags = torch.stack([step_norm >= tol, improved]).reshape(2, n_lanes).tolist()
             for b in range(n_lanes):

@@ -465,10 +465,19 @@ def radius_cleanup(m: VoxelMap, center: torch.Tensor, *, radius: float,
 
 
 def map_update(m: VoxelMap, new: PointsWithNormals, center: torch.Tensor, *,
-               voxel_size: float, radius: float) -> VoxelMap:
+               voxel_size: float, radius: float, origin_quantum: int = 1) -> VoxelMap:
     """radius_cleanup then map_insert in one sort pass (the reference's
-    per-scan sequence, lidar_odometry.cpp:67-70)."""
+    per-scan sequence, lidar_odometry.cpp:67-70).
+
+    origin_quantum > 1 floors the rebased origin's x and y to multiples of
+    it. The column-sharded map (parallel/spatial.py) passes its shard count
+    N: a column's owner, gx mod N, then never changes across rebases, so no
+    voxel moves between ranks. The origin stays within N - 1 voxels of the
+    sensor, which the +-512-voxel key window absorbs."""
     new_origin = voxel_indices(center, voxel_size)
+    if origin_quantum > 1:
+        xy = torch.div(new_origin[..., :2], origin_quantum, rounding_mode="floor")
+        new_origin = torch.cat([xy * origin_quantum, new_origin[..., 2:]], dim=-1)
     evict = _evict_mask(m, center, new_origin, radius)
     return _update_impl(m, new, new_origin, evict, voxel_size)
 

@@ -1,6 +1,7 @@
 """Pose-graph refinement: Gauss-Newton over keyframe poses with a direct, a
 Schur-complement and a block-sparse segment-Schur solver (port of the JAX
-``parallel/pose_graph.py``, without its edge-sharded `make_refine_sharded`).
+``parallel/pose_graph.py``), and the edge-sharded refinement over a mesh axis's
+ranks, `make_refine_sharded`.
 
 - nodes: keyframe poses X_i in SE(3) (a `Pose` with a (P,) batch),
 - edges: relative-pose constraints Z_ij (odometry chain + loop closures),
@@ -123,9 +124,12 @@ def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
-def build_normal_equations(g: PoseGraph):
+def build_normal_equations(g: PoseGraph, group=None):
     """Dense block normal equations H (P, P, 6, 6), b (P, 6) from all edges,
-    with the gauge prior on pose 0."""
+    with the gauge prior on pose 0. With a `group` (parallel/mesh.py), g
+    holds this rank's share of the edges and H and b are summed over the
+    group (one all-reduce each) before the prior: the edge-parallel
+    pattern of `make_refine_sharded`."""
     P = g.poses.t.shape[0]
     Hii, Hjj, Hij, bi, bj = _edge_blocks(g)
     f32 = dict(dtype=Hii.dtype, device=Hii.device)
@@ -137,6 +141,9 @@ def build_normal_equations(g: PoseGraph):
     H.index_put_((g.edge_j, g.edge_i), Hij.transpose(-1, -2), accumulate=True)
     b.index_add_(0, g.edge_i, bi)
     b.index_add_(0, g.edge_j, bj)
+    if group is not None:
+        group.psum(H, "H")
+        group.psum(b, "b")
     H[0, 0] += 1e6 * _eye(6, H)  # gauge prior: pin pose 0
     return H, b
 
@@ -396,6 +403,38 @@ def refine(g: PoseGraph, iterations: int = 10, use_schur: bool = False,
         H, b = build_normal_equations(g)
         g = _step(g, solve_schur(H, b, is_sep) if use_schur else solve_direct(H, b))
     return g
+
+
+def make_refine_sharded(mesh, axis: str = "dp", iterations: int = 10,
+                        use_schur: bool = False, separator_stride: int = 4):
+    """Edge-sharded refinement over the ranks of one mesh axis (the JAX
+    `make_refine_sharded`). Returns run(g): g, the same on every rank of the
+    axis, has its edges padded to a multiple of the axis size (pad_edges;
+    padding is masked invalid). Each rank takes its contiguous 1/N of the
+    edges and builds its part of the normal equations; one sum per
+    Gauss-Newton iteration (of H, then of b) gives every rank the same
+    system, and every rank solves it (direct or Schur). The poses stay
+    replicated; run returns g with the refined poses."""
+    group = mesh.axis(axis)
+
+    def run(g: PoseGraph) -> PoseGraph:
+        E, n = g.edge_i.shape[0], group.size
+        if E % n:
+            raise ValueError(f"pad edges to a multiple of {n} (got {E})")
+        mine = slice(group.rank * (E // n), (group.rank + 1) * (E // n))
+        local = g._replace(edge_i=g.edge_i[mine], edge_j=g.edge_j[mine],
+                           edge_z=se3.Pose(g.edge_z.t[mine], g.edge_z.q[mine]),
+                           edge_w_rot=g.edge_w_rot[mine], edge_w_t=g.edge_w_t[mine],
+                           edge_valid=g.edge_valid[mine])
+        P = g.poses.t.shape[0]
+        is_sep = torch.arange(P, device=g.poses.t.device) % separator_stride == 0
+        for _ in range(iterations):
+            H, b = build_normal_equations(local, group)
+            local = _step(local, solve_schur(H, b, is_sep) if use_schur
+                          else solve_direct(H, b))
+        return g._replace(poses=local.poses)
+
+    return run
 
 
 def _host(x) -> np.ndarray:

@@ -8,8 +8,18 @@ src/lidar_odometry.cpp:22-77):
   current∘relative -> angular divergence guard with constant-velocity
   fallback -> radius eviction at 80 m -> world transform + keyframe insert.
 
-Single device only. The first-scan branch is a Python `if` on the map's
-occupancy (one device read per scan).
+The first-scan branch is a Python `if` on the map's occupancy (one device
+read per scan).
+
+Sharded modes (parallel/mesh.py groups, one rank per process): with an sp
+group each rank aligns its `max_match_points // n` slice of the matching
+points against the replicated map; with a spatial group each rank holds
+one column shard of the map (parallel/spatial.py), searches the view its
+ring neighbours' shards complete, aligns the queries it owns and inserts
+the points it owns. Either way ICP sums its counts, costs, H and b over
+the group (ops/icp.py), and ICP always runs: the first scan is selected
+afterwards, so that no collective sits in a branch that one rank could
+take and another not.
 
 The same step serves a batch of B independent sequences: every state and
 scan field then carries a leading lane axis, and each stage works per lane
@@ -67,11 +77,33 @@ def init_state(cfg: OdometryConfig, device=None) -> OdometryState:
     )
 
 
-def make_process_scan(cfg: OdometryConfig, return_deskewed: bool = False):
+def make_process_scan(cfg: OdometryConfig, return_deskewed: bool = False,
+                      sp_group=None, spatial_group=None):
     """The per-scan step: (state, scan) -> (state, diagnostics), for one
     sequence or, with a leading lane axis on the state and the scan, for B
-    sequences at once."""
-    align_fn = icp.make_align(cfg)
+    sequences at once.
+
+    sp_group: the ranks that share each sequence's ICP, each taking a
+    slice of the matching points (the JAX `sp_axis`). spatial_group: the
+    ranks that hold the keyframe map's column shards; state.keyframe is
+    this rank's shard (parallel/spatial.py, the JAX `spatial_axis`). The
+    two are mutually exclusive."""
+    if sp_group is not None and spatial_group is not None:
+        raise ValueError("sp_group (query slicing) and spatial_group (map partitioning) "
+                         "shard the same ICP loop differently; pick one")
+    group = sp_group if spatial_group is None else spatial_group
+    if spatial_group is not None:
+        from lidar_odometry_demo_tpu_torch.parallel import spatial
+
+        def owner(m_view, q_world):
+            return spatial.owner_mask(q_world, m_view.origin, cfg.keyframe_voxel_size,
+                                      spatial_group)
+
+        align_fn = icp.make_align(cfg, group=spatial_group, owner_fn=owner)
+    elif sp_group is not None:
+        align_fn = icp.make_align(cfg, group=sp_group)
+    else:
+        align_fn = icp.make_align(cfg)
 
     def process_scan(state: OdometryState, raw: LidarScan):
         dev = raw.xyz.device
@@ -101,17 +133,34 @@ def make_process_scan(cfg: OdometryConfig, return_deskewed: bool = False):
         # 7. ICP + divergence guard (lidar_odometry.cpp:49-63); the first
         #    scan skips to map init (lidar_odometry.cpp:40-44). Over lanes:
         #    ICP runs if any lane is initialized, and each lane selects.
-        initialized = vm.map_size(state.keyframe) > 0
-        init_flags = initialized.reshape(-1).tolist()
-        if any(init_flags):
-            res = align_fn(state.keyframe, match_ds.xyz, match_ds.valid, guess)
+        #    Under a group ICP always runs and every lane selects.
+        local_size = vm.map_size(state.keyframe)
+        if spatial_group is None:
+            initialized = local_size > 0
+            icp_map = state.keyframe
+        else:  # the shards' sum; ICP searches the view the halo completes
+            initialized = spatial_group.psum(local_size, "initialized") > 0
+            icp_map = spatial.build_halo_view(state.keyframe, spatial_group)
+        if group is None:
+            init_flags = initialized.reshape(-1).tolist()
+            run_icp, select = any(init_flags), not all(init_flags)
+        else:
+            run_icp = select = True
+        if run_icp:
+            q_xyz, q_valid = match_ds.xyz, match_ds.valid
+            if sp_group is not None:  # this rank's slice of the matching points
+                chunk = cfg.max_match_points // sp_group.size
+                rows = slice(sp_group.rank * chunk, (sp_group.rank + 1) * chunk)
+                q_xyz = q_xyz[..., rows, :].contiguous()
+                q_valid = q_valid[..., rows].contiguous()
+            res = align_fn(icp_map, q_xyz, q_valid, guess)
             ok = se3.rotation_within_threshold(
                 se3.quat_mul(res.pose.q, se3.quat_conj(state.current.q)),
                 cfg.angular_divergence_threshold)
             pose = se3.pose_where(ok, res.pose, guess)
             iters, step_norm, n_matches, diverged = (
                 res.iterations, res.step_norm, res.num_matches, ~ok)
-            if not all(init_flags):  # the first scan of some lanes: skip_icp there
+            if select:  # the first scan of some lanes: skip_icp there
                 pose = se3.pose_where(initialized, pose, state.current)
                 iters = torch.where(initialized, iters, 0)
                 step_norm = torch.where(initialized, step_norm, 0.0)
@@ -127,9 +176,20 @@ def make_process_scan(cfg: OdometryConfig, return_deskewed: bool = False):
         # 8. map maintenance (lidar_odometry.cpp:67-70): evict + rebase +
         #    insert in one pass
         upd_world = preprocess.transform_with_normals(update_ds, pose)
-        keyframe = vm.map_update(
-            state.keyframe, upd_world, pose.t,
-            voxel_size=cfg.keyframe_voxel_size, radius=cfg.keyframe_cleanup_range)
+        if spatial_group is None:
+            keyframe = vm.map_update(
+                state.keyframe, upd_world, pose.t,
+                voxel_size=cfg.keyframe_voxel_size, radius=cfg.keyframe_cleanup_range)
+            map_voxels = vm.map_size(keyframe)
+        else:  # insert only the columns this rank owns; rebase in steps of N
+            own = spatial.owner_mask(upd_world.xyz, state.keyframe.origin,
+                                     cfg.keyframe_voxel_size, spatial_group)
+            upd_world = upd_world._replace(valid=upd_world.valid & own)
+            keyframe = vm.map_update(
+                state.keyframe, upd_world, pose.t,
+                voxel_size=cfg.keyframe_voxel_size, radius=cfg.keyframe_cleanup_range,
+                origin_quantum=spatial_group.size)
+            map_voxels = spatial_group.psum(vm.map_size(keyframe), "map_voxels")
         upd_keys = vm.pack_keys(
             vm.voxel_indices(upd_world.xyz, cfg.keyframe_voxel_size),
             keyframe.origin, upd_world.valid, map_window=True)
@@ -144,7 +204,7 @@ def make_process_scan(cfg: OdometryConfig, return_deskewed: bool = False):
             num_matches=n_matches,
             diverged=diverged,
             num_planar=num_planar,
-            map_voxels=vm.map_size(keyframe),
+            map_voxels=map_voxels,
             num_window_dropped=n_dropped,
             num_downsample_dropped=upd_overflow + match_overflow,
             deskewed_xyz=deskewed.xyz if return_deskewed else None,

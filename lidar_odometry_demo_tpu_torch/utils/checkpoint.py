@@ -9,13 +9,20 @@ version for version: a file written by either package loads in the other.
 The migrations are this package's own numpy copy. A batched state (a
 leading lane axis on every field) saves and loads the same way.
 
-The JAX package's orbax checkpoint (async, multi-host) has no counterpart
-here yet: it belongs with the sharded modes.
+In place of the JAX package's orbax checkpoint (`save_orbax` /
+`load_orbax`, multi-host) the sharded modes save with
+torch.distributed.checkpoint (`save_sharded` / `load_sharded`): a
+directory that every rank of a mesh writes together. Each rank writes its
+map shard (a column shard under the spatial mode, its lanes' maps under
+dp) and the poses of its lanes, which the ranks of one sp group hold
+alike and which are written once; a resumed run continues as the
+uninterrupted run would.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from lidar_odometry_demo_tpu_torch.device import resolve_device, to_torch
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
@@ -210,3 +217,40 @@ def load_npz(path: str, device=None) -> OdometryState:
     return OdometryState(
         keyframe=vm.VoxelMap(**{f: leaf(keyframe[f], np.int32) for f in vm.VoxelMap._fields}),
         current=pose("current"), previous=pose("previous"))
+
+
+def _sharded_names(state: OdometryState, mesh) -> dict:
+    """`state`'s tensors by their names in a sharded checkpoint: the map
+    under this rank's (dp, sp) place, the poses under its dp index (the
+    same tensors on every rank of its sp group)."""
+    dp, sp = mesh.dp_index, mesh.sp_index
+    flat = {f"dp{dp}.sp{sp}.keyframe.{f}": getattr(state.keyframe, f)
+            for f in vm.VoxelMap._fields}
+    for name in ("current", "previous"):
+        pose = getattr(state, name)
+        flat[f"dp{dp}.{name}.t"] = pose.t
+        flat[f"dp{dp}.{name}.q"] = pose.q
+    return flat
+
+
+def save_sharded(path: str, state: OdometryState, mesh) -> None:
+    """Write this rank's `state` into the sharded checkpoint directory
+    `path`: every rank of the mesh (parallel/mesh.py) calls this together
+    with its own state (torch.distributed.checkpoint)."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(_sharded_names(state, mesh), checkpoint_id=path)
+
+
+def load_sharded(path: str, like: OdometryState, mesh) -> OdometryState:
+    """Read this rank's state from the sharded checkpoint `path` into
+    tensors shaped and placed as `like`'s (e.g. a fresh
+    spatial.init_spatial_state); every rank calls this together."""
+    import torch.distributed.checkpoint as dcp
+
+    flat = {k: torch.empty_like(v) for k, v in _sharded_names(like, mesh).items()}
+    dcp.load(flat, checkpoint_id=path)
+    v = list(flat.values())  # in _sharded_names' order: the map, current, previous
+    n = len(vm.VoxelMap._fields)
+    return OdometryState(keyframe=vm.VoxelMap(*v[:n]), current=Pose(*v[n:n + 2]),
+                         previous=Pose(*v[n + 2:]))

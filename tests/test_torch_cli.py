@@ -173,11 +173,48 @@ def test_cli_fleet_matches_the_jax_cli(tmp_path, capsys, monkeypatch, tiny_yaml)
 
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--sp", "2"]])
-def test_cli_fleet_mesh_flags_raise(flag):
-    """The sharded modes (a dp x sp mesh) are not ported: asking for one
-    raises and names them."""
-    with pytest.raises(SystemExit, match="sharded modes"):
-        cli.main(["fleet", "--batch", "2", "--scans", "1", "--device", "cpu", *flag])
+def test_cli_fleet_mesh_flags_raise(tmp_path, capsys, tiny_yaml, flag):
+    """The sharded modes are ported: `--dp 2` and `--sp 2` spawn two ranks
+    (gloo on the CPU) and write every lane's TUM within 1e-5 of the dp=1
+    run; only an impossible mesh raises and names the flag (a batch that
+    --dp does not divide, an axis of no rank)."""
+    fleet = ["--config", tiny_yaml, "fleet", "--batch", "2", "--scans", "2", "--device", "cpu"]
+    cli.main([*fleet, "--out-prefix", str(tmp_path / "one_")])
+    capsys.readouterr()
+    cli.main([*fleet, *flag, "--out-prefix", str(tmp_path / "mesh_")])
+    captured = capsys.readouterr()
+    dp, sp = (2, 1) if flag[0] == "--dp" else (1, 2)
+    assert f"mesh: dp={dp} x sp={sp} over 1 devices (2 ranks, backend gloo)" in captured.err
+    for b in range(2):
+        assert f"lane {b}: {tmp_path / f'mesh_{b}.tum'}  aligned ATE " in captured.out
+        _, t, q = read_tum(str(tmp_path / f"mesh_{b}.tum"))
+        _, t1, q1 = read_tum(str(tmp_path / f"one_{b}.tum"))
+        np.testing.assert_allclose(t, t1, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(q, q1, atol=1e-5, rtol=0)
+    bad = ["--batch", "3", "--dp", "2"] if flag[0] == "--dp" else ["--sp", "0"]
+    with pytest.raises(SystemExit, match=bad[-2]):
+        cli.main(["fleet", "--scans", "1", "--device", "cpu", *bad])
+
+
+def test_cli_fleet_dp2_sp2_matches_the_jax_cli(tmp_path, capsys, monkeypatch, tiny_yaml):
+    """`fleet --batch 2 --scans 3 --dp 2 --sp 2`, the JAX CLI's command line
+    (its mesh over 4 of its 8 CPU devices; the port spawns 4 ranks): one
+    TUM per lane within 1e-4 of the JAX CLI's, and its mesh line."""
+    monkeypatch.setattr(jcli, "_load_config", lambda args: JTINY)
+    fleet = ["fleet", "--batch", "2", "--scans", "3", "--dp", "2", "--sp", "2"]
+    jcli.main([*fleet, "--out-prefix", str(tmp_path / "j_")])
+    jerr = capsys.readouterr().err
+    cli.main(["--config", tiny_yaml, *fleet, "--device", "cpu",
+              "--out-prefix", str(tmp_path / "t_")])
+    captured = capsys.readouterr()
+    assert "mesh: dp=2 x sp=2 over " in jerr
+    assert "mesh: dp=2 x sp=2 over 1 devices (4 ranks, backend gloo)" in captured.err
+    assert "fleet: 2 sequences x 3 scans in " in captured.err
+    for b in range(2):
+        _, t, q = read_tum(str(tmp_path / f"t_{b}.tum"))
+        _, jt, jq = read_tum(str(tmp_path / f"j_{b}.tum"))
+        np.testing.assert_allclose(t, jt, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(q, jq, atol=1e-4, rtol=0)
 
 
 def test_bench_cuda_without_a_card_exits_non_zero():

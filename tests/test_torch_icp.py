@@ -24,7 +24,8 @@ from lidar_odometry_demo_tpu.ops import voxel_map as jvm
 from lidar_odometry_demo_tpu.ops.pallas.jtwj import jtwj_accumulate as pallas_jtwj
 from lidar_odometry_demo_tpu_torch.config import TINY
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
-    GnWork, add_prior, gn_step, gn_step_plain, jtwj_accumulate, prior_weight, solve_spd_6x6)
+    GnWork, add_prior, gn_step, gn_step_plain, jtwj_accumulate, jtwj_plain, prior_weight,
+    solve_spd_6x6)
 from lidar_odometry_demo_tpu_torch.ops import icp as ticp
 from lidar_odometry_demo_tpu_torch.ops import se3 as tse3
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as tvm
@@ -60,7 +61,7 @@ def test_jtwj_plain_matches_pallas(rng):
     sl, po, pn, valid, R, t = _system(rng, 2048)
     jH, jb = pallas_jtwj(*(jnp.asarray(a) for a in (sl, po, pn, valid, R, t)),
                          huber_delta=0.15, tile=512, interpret=True)
-    tH, tb = jtwj_accumulate(*(_t(a) for a in (sl, po, pn, valid, R, t)), huber_delta=0.15)
+    tH, tb = jtwj_plain(*(_t(a) for a in (sl, po, pn, valid, R, t)), huber_delta=0.15)
     np.testing.assert_allclose(tH.numpy(), np.asarray(jH), rtol=2e-5, atol=1e-4)
     np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=2e-5, atol=1e-4)
 
@@ -74,8 +75,8 @@ def test_normal_equations_with_prior_match_jax(rng):
     tcorr = tvm.Correspondence(*(_t(a) for a in (sl, po, pn, valid)))
     jH, jb = jicp._normal_equations(jcorr, jse3.Pose(jnp.asarray(t), jnp.asarray(q)),
                                     jnp.asarray(guess_t), JTINY)
-    tR = tse3.quat_to_matrix(_t(q)).contiguous()
-    tH, tb = add_prior(*jtwj_accumulate(*tcorr, tR, _t(t), huber_delta=TINY.icp_huber_delta),
+    tH, tb = add_prior(*jtwj_accumulate(tcorr, tse3.Pose(_t(t), _t(q)),
+                                        huber_delta=TINY.icp_huber_delta),
                        _t(t), _t(guess_t), prior_weight(TINY))
     np.testing.assert_allclose(tH.numpy(), np.asarray(jH), rtol=2e-5, atol=1e-4)
     np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=2e-5, atol=1e-4)
@@ -172,9 +173,7 @@ def test_gn_steps_on_cpu_are_the_plain_steps(rng):
     ref = gn_step_plain(corr, pose0, guess_t, TINY)
     for x, y in zip(got[2:], ref[2:]):
         assert torch.equal(x, y)
-    H0, b0 = jtwj_accumulate(corr.source_local, corr.plane_origin, corr.plane_normal,
-                             corr.valid, tse3.quat_to_matrix(pose0.q), pose0.t,
-                             huber_delta=TINY.icp_huber_delta)
+    H0, b0 = jtwj_accumulate(corr, pose0, huber_delta=TINY.icp_huber_delta)
     assert torch.equal(got[2], H0) and torch.equal(got[3], b0)
 
 

@@ -11,7 +11,11 @@ its plain version; K1 in pose mode index and valid equal, origin, normal
 and d2 within atol 1e-6; K2 within rtol 2e-5 / atol 1e-4 of its plain
 version and bitwise equal across two runs; K2's whole step likewise for H
 and b, the pose within 1e-6 and the step norm within rtol 1e-5, bitwise
-equal across two runs and across 100 steps on one workspace; K3 equal to
+equal across two runs and across 100 steps on one workspace; K2 split
+around a sum over ranks (the epilogue off, then the epilogue entry point on
+that H and b) bitwise the whole step, and within 1e-6 of the epilogue's
+plain version; the column-sharded map's composite view searched by K3
+and K1 bitwise the replicated map's search; K3 equal to
 its plain version and to
 torch.searchsorted at every index, and its neighbourhood and group lookups
 bitwise equal to their plain versions (base and n_present everywhere, the
@@ -31,13 +35,14 @@ from lidar_odometry_demo_tpu_torch.io.simulator import sample_structured_cloud, 
 from lidar_odometry_demo_tpu_torch.kernels.correspondence import (
     match_correspondences, match_correspondences_plain, match_rows, match_rows_plain)
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
-    GnWork, gn_step, gn_step_plain, jtwj_accumulate, jtwj_plain)
+    GnWork, gn_epilogue, gn_epilogue_plain, gn_step, gn_step_plain, jtwj_accumulate,
+    jtwj_plain)
 from lidar_odometry_demo_tpu_torch.kernels.search import (
     group_lookup, group_lookup_plain, neighborhood_lookup, neighborhood_lookup_plain,
     search_sorted, search_sorted_plain)
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as tvm
 from lidar_odometry_demo_tpu_torch.ops.cloud import PointsWithNormals, scan_from_numpy
-from lidar_odometry_demo_tpu_torch.ops.se3 import Pose
+from lidar_odometry_demo_tpu_torch.ops.se3 import Pose, quat_to_matrix
 from lidar_odometry_demo_tpu_torch.ops.voxel_map import (
     EMPTY_KEY, CandidateSet, Correspondence, _lanes)
 from lidar_odometry_demo_tpu_torch.pipeline import odometry
@@ -98,10 +103,10 @@ def test_match_rows_kernel_matches_plain(rng):
 @pytest.mark.parametrize("Q", [8192, 8115, 1])
 def test_jtwj_kernel_matches_plain_and_repeats(rng, Q):
     _need_card()
-    args = _system(rng, Q)
-    H, b = jtwj_accumulate(*args, huber_delta=0.15)
-    H2, b2 = jtwj_accumulate(*args, huber_delta=0.15)
-    Hp, bp = jtwj_plain(*args, huber_delta=0.15)
+    corr, pose, _ = _step_inputs(rng, Q)
+    H, b = jtwj_accumulate(corr, pose, huber_delta=0.15)
+    H2, b2 = jtwj_accumulate(corr, pose, huber_delta=0.15)
+    Hp, bp = jtwj_plain(*corr, quat_to_matrix(pose.q), pose.t, huber_delta=0.15)
     assert torch.equal(H, H2) and torch.equal(b, b2)
     assert torch.allclose(H, Hp, rtol=2e-5, atol=1e-4)
     assert torch.allclose(b, bp, rtol=2e-5, atol=1e-4)
@@ -199,10 +204,9 @@ def test_wrappers_check_their_inputs_on_card(rng):
         match_rows(q, rows_z, n_present.long(), max_d2=0.09, max_points=20)
     with pytest.raises(ValueError, match="contiguous"):
         match_rows(q.T.contiguous().T, rows_z, n_present, max_d2=0.09, max_points=20)
-    sl, po, pn, valid, R, t = _system(rng, 64)
-    with pytest.raises(ValueError, match="shape"):
-        jtwj_accumulate(sl, po, pn, valid[:32], R, t, huber_delta=0.15)
     corr, pose, guess_t = _step_inputs(rng, 64)
+    with pytest.raises(ValueError, match="shape"):
+        jtwj_accumulate(corr._replace(valid=corr.valid[:32]), pose, huber_delta=0.15)
     with pytest.raises(ValueError, match="shape"):
         gn_step(corr, Pose(pose.t, pose.q[:3]), guess_t, OdometryConfig())
     args, tab, nrm_view = _fused(rng, 64, 20)
@@ -499,6 +503,81 @@ def test_gn_step_over_lanes_with_an_inactive_lane(rng):
                    zip([new.t[lane], new.q[lane], norm[lane], H[lane], b[lane]], one))
 
 
+
+def _split_step(corr, pose, guess_t, cfg, work, **lane_args):
+    H, b = jtwj_accumulate(corr, pose, huber_delta=cfg.icp_huber_delta, work=work,
+                           active=lane_args.get("active"))
+    new, norm = gn_epilogue(H, b, pose, guess_t, cfg, work=work, **lane_args)
+    return new, norm, H, b
+
+
+@pytest.mark.parametrize("Q", [8192, 8115, 1])
+def test_split_step_is_the_fused_step(rng, Q):
+    """K2 split as under an sp or spatial group (of one rank here): the
+    epilogue-off launch at the pose, then the epilogue entry point on its H
+    and b, gives the fused step's H, b, pose and step norm bitwise, one
+    launch each, and the epilogue's plain version's pose within 1e-6."""
+    _need_card()
+    cfg = OdometryConfig()
+    corr, pose, guess_t = _step_inputs(rng, Q)
+    fused = _snapshot(gn_step(corr, pose, guess_t, cfg, work=GnWork.empty(1, "cuda")))
+    before = (jtwj_accumulate.launches, gn_epilogue.launches)
+    split = _snapshot(_split_step(corr, pose, guess_t, cfg, GnWork.empty(1, "cuda")))
+    assert (jtwj_accumulate.launches, gn_epilogue.launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.equal(x, y) for x, y in zip(split, fused))
+    (pt, pq), pnorm = gn_epilogue_plain(split[3], split[4], pose, guess_t, cfg)
+    assert torch.allclose(split[0], pt, atol=1e-6, rtol=0)
+    assert torch.allclose(split[1], pq, atol=1e-6, rtol=0)
+    assert torch.allclose(split[2], pnorm, rtol=1e-5, atol=0)
+
+
+def test_split_step_over_lanes_with_an_inactive_lane(rng):
+    """The split step at B = 3 with lane 1 inactive: bitwise the fused
+    step at B = 3 (the inactive lane's pose and step norm unchanged), and
+    the epilogue's plain version's poses within 1e-6."""
+    _need_card()
+    cfg = OdometryConfig()
+    per = [_step_inputs(rng, 8192) for _ in range(3)]
+    corr = Correspondence(*(torch.stack(xs) for xs in zip(*[p[0] for p in per])))
+    pose = Pose(torch.stack([p[1].t for p in per]), torch.stack([p[1].q for p in per]))
+    guess_t = torch.stack([p[2] for p in per])
+    lane_args = dict(step_norm=torch.tensor([0.5, 0.25, 0.125], device="cuda"),
+                     active=torch.tensor([True, False, True], device="cuda"))
+    fused = _snapshot(gn_step(corr, pose, guess_t, cfg, work=GnWork.empty(1, "cuda", (3,)),
+                              **lane_args))
+    split = _snapshot(_split_step(corr, pose, guess_t, cfg, GnWork.empty(1, "cuda", (3,)),
+                                  **lane_args))
+    for x, y in zip(split[:3], fused[:3]):
+        assert torch.equal(x, y)
+    for x, y in zip(split[3:], fused[3:]):  # H and b of the active lanes
+        assert torch.equal(x[0::2], y[0::2])
+    assert torch.equal(split[0][1], pose.t[1]) and float(split[2][1]) == 0.25
+    (pt, pq), _ = gn_epilogue_plain(split[3], split[4], pose, guess_t, cfg, **lane_args)
+    assert torch.allclose(split[0], pt, atol=1e-6, rtol=0)
+    assert torch.allclose(split[1], pq, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_composite_view_search_on_card(n):
+    """The column-sharded map's composite view (parallel/spatial.py) on the
+    card: a TINY drive's map split into n shards, each rank's view merged
+    from its shard and its ring neighbours' (3C/4 rows at n = 4, no power of
+    two), searched by K3 and K1 for the queries it owns: bitwise the
+    replicated map's search (chip_smoke.composite_search_check)."""
+    _need_card()
+    smoke = _smoke()
+    cfg = TINY.replace(map_capacity=8192)
+    drive = simulate_sequence(num_scans=6, width=cfg.scan_width, seed=3, speed=2.0,
+                              yaw_rate=0.05)
+    scans = [scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
+                             cfg.max_raw_points, "cuda") for s in drive.scans]
+    odo = odometry.LidarOdometry(cfg, device="cuda")
+    for scan in scans[:-1]:
+        odo.process_scan(scan)
+    lookup = smoke.path_lookups(odo, scans[-1])["neighbourhood"][0][0]
+    out = smoke.composite_search_check(odo.state.keyframe, lookup, n, cfg)
+    assert out["rows"] == min(n, 3) * cfg.map_capacity // n and out["matches"] > 100
+
 def test_lookups_over_lanes(rng):
     """K3's neighbourhood and group lookups at B = 3 (three maps built on
     the card): bitwise their plain versions and their B = 1 launches."""
@@ -559,6 +638,21 @@ def test_tiny_fleet_on_card_matches_cpu():
     rounds = int(iters.max(axis=1).sum())
     assert launched == (rounds, TINY.icp_inner_iterations * rounds,
                         int((iters.max(axis=1) > 0).sum()) + 5)
+
+
+def test_fleet_ranks_asked_for_the_cpu_stay_on_it():
+    """`fleet --dp 2 --device cpu` on a host with a card: both spawned
+    ranks lay their tensors on the CPU (gloo), none on the card."""
+    _need_card()
+    import argparse
+
+    from lidar_odometry_demo_tpu_torch import cli
+    from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
+
+    args = argparse.Namespace(batch=2, scans=2, seed=0, speed=3.0, dp=2, sp=1)
+    res = mesh_lib.run_ranks(cli._fleet_rank, 2, TINY, args, device="cpu", timeout=300)
+    assert res[0]["devices"] == ["cpu", "cpu"] and res[0]["backend"] == "gloo"
+    assert np.all(np.isfinite(res[0]["t"])) and res[0]["t"].shape == (2, 2, 3)
 
 
 # ---------------------------------------------------------------------------

@@ -440,6 +440,7 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
     """Off the CPU the wrappers launch the CUDA kernel or raise; they never
     run the plain version on another device."""
     from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate
+    from lidar_odometry_demo_tpu_torch.ops.se3 import Pose
 
     meta = dict(device="meta")
     rows = tuple(torch.zeros((9 * 8, 64), dtype=torch.int32, **meta) for _ in range(3))
@@ -448,8 +449,8 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
                    torch.zeros((9, 8), dtype=torch.int32, **meta), max_d2=0.09, max_points=20)
     v3 = torch.zeros((8, 3), **meta)
     with pytest.raises(ValueError, match="CUDA"):
-        jtwj_accumulate(v3, v3, v3, torch.zeros(8, dtype=torch.bool, **meta),
-                        torch.zeros((3, 3), **meta), torch.zeros(3, **meta), huber_delta=0.15)
+        jtwj_accumulate(tvm.Correspondence(v3, v3, v3, torch.zeros(8, dtype=torch.bool, **meta)),
+                        Pose(torch.zeros(3, **meta), torch.zeros(4, **meta)), huber_delta=0.15)
 
 
 # --------------------------------------------------------------------------
