@@ -122,8 +122,13 @@ Phases, each of which raises (non-zero exit) on failure:
    split or batched launch schedule, per-rank ms/scan, collectives, halo
    bytes, staging ms and launches per scan printed; (d) the edge-sharded
    refine of phase 9's noisy loop, within 5e-3 of the correction from
-   phase 9's and equal on both ranks. Last, a world of one on NCCL: psum
-   and ppermute_from (to itself) through the mesh's group.
+   phase 9's and equal on both ranks, and the edge-sharded segment-Schur
+   refine (refine_segment with a group) at config 5's shape (a 512-pose
+   noisy loop, stride 8, closures (504, 0) and (256, 0), 10 iterations),
+   within 1e-4 m of the one-process refine_segment on the card, the ranks
+   bitwise equal, one all-reduce per iteration. Last, a world of one on
+   NCCL: psum and ppermute_from (to itself) through the mesh's group, each
+   timed on the device by CUDA events (CommStats) as well as on the host.
 
 Prints a `kernels` JSON line (each kernel with its launches on every path,
 `launches_live` the live phase's, `launches_sharded_sp` / `_spatial` /
@@ -1759,51 +1764,73 @@ ATE_CEILING = 0.03       # every path's aligned ATE bound
 # Summing H and b over the ranks reorders float32 sums, so the two drift
 # apart by ulps from scan 1 on and a correspondence at a gate's edge flips
 SP_FROM_MAIN_M = 1e-4
+# Every scan's matches under sp against phase 3's, as a share of the
+# drive's largest count (6,437 on the bench drive): the drift above moves
+# correspondences across a gate, by up to 16 at two ranks and up to 64 with
+# four parts added pairwise (the one-process witnesses, one H100); a rank
+# whose part of a sum is lost or counted twice moves them by a quarter
+SP_MATCHES_FROM_MAIN = 0.02
+SPATIAL_FROM_MAIN_M = 1e-3  # spatial's trajectory against phase 3's, m
+EMPTY_KEY = 0x7FFFFFFF      # kernels/search.py: an empty slot of a voxel map
 
 
 class ThreadGroup:
     """Rank `rank` of a group of n threads of one process, standing in for
     an sp group of n ranks (the interface ops/icp.py and
     pipeline/odometry.py use: size, rank, psum). `psum` adds the n threads'
-    tensors on the device in rank order, x_0 + x_1 + ..., which is what an
-    all-reduce over two ranks gives (float addition commutes): at n = 2 it
-    is the one-process witness of the split sums. The threads share one
-    stream, so the barriers order the reads and writes on the device."""
+    tensors on the device in the group's `order`: "rank", x_0 + x_1 + ...,
+    which is what an all-reduce over two ranks gives (float addition
+    commutes), so at n = 2 it is the one-process witness of the split sums;
+    or "pairwise", the tree (x_0 + x_1) + (x_2 + x_3) + ..., a second
+    association of the same operands. The threads share one stream, so the
+    barriers order the reads and writes on the device."""
+
+    ORDERS = ("rank", "pairwise")
 
     def __init__(self, rank: int, shared: dict):
         self.rank, self.size, self.shared = rank, shared["n"], shared
 
     @staticmethod
-    def shared(n: int) -> dict:
+    def shared(n: int, order: str = "rank") -> dict:
         import threading
 
-        return {"n": n, "barrier": threading.Barrier(n, timeout=120), "slots": [None] * n}
+        if order not in ThreadGroup.ORDERS:
+            raise ValueError(f"order {order!r} is not one of {ThreadGroup.ORDERS}")
+        return {"n": n, "order": order, "barrier": threading.Barrier(n, timeout=120),
+                "slots": [None] * n}
 
     def psum(self, x, kind: str = "psum"):
         sh = self.shared
         sh["slots"][self.rank] = x
         sh["barrier"].wait()  # every rank's x is in
-        total = sh["slots"][0]
-        for y in sh["slots"][1:]:
-            total = total + y
+        terms = list(sh["slots"])
+        if sh["order"] == "rank":
+            total = terms[0]
+            for y in terms[1:]:
+                total = total + y
+        else:
+            while len(terms) > 1:
+                terms = [terms[i] + terms[i + 1] if i + 1 < len(terms) else terms[i]
+                         for i in range(0, len(terms), 2)]
+            total = terms[0]
         sh["barrier"].wait()  # every rank has queued its reads of the slots
         return x.copy_(total)
 
 
-def sp_witness(cfg, scans, device, n: int = 2) -> dict:
+def sp_witness(cfg, scans, device, n: int = 2, order: str = "rank") -> dict:
     """The sp path with its group's sums taken in one process: n threads
     each drive `make_process_scan(cfg, sp_group=...)` over `scans` from a
     fresh state with a ThreadGroup, so each Gauss-Newton step is split into
-    the same halves (jtwj_accumulate on each rank's slice of the matching
-    points), whose H and b, matches and cost sums are added in rank order
-    before the epilogue. Returns rank 0's poses, iterations and matches
-    (numpy); raises if the threads disagree."""
+    the same parts (jtwj_accumulate on each rank's slice of the matching
+    points), whose H and b, matches and cost sums are added in `order`
+    (ThreadGroup) before the epilogue. Returns rank 0's poses, iterations
+    and matches (numpy); raises if the threads disagree."""
     import threading
     import traceback
 
     from lidar_odometry_demo_tpu_torch.pipeline import odometry
 
-    shared = ThreadGroup.shared(n)
+    shared = ThreadGroup.shared(n, order)
     outs, errors = [None] * n, []
 
     def drive(rank):
@@ -1993,11 +2020,16 @@ def composite_search_check(m, lookup_args: tuple, n: int, cfg) -> dict:
                 shard_rows=[int(vm.map_size(s)) for s in shards])
 
 
-def _sharded_drive(step, state, scans, mesh, counted: dict, lanes: int = 1):
+def _sharded_drive(step, state, scans, mesh, counted: dict, sync_ranks=None):
     """One warm-up pass and one timed pass of `scans` through `step` on
     this rank; every launch count and the mesh's collective costs set to 0
-    just before the timed pass and read just after. Returns the poses,
-    diagnostics, final state, launches, collectives and ms per scan."""
+    just before the timed pass and read just after, the collectives timed
+    on the device in the timed pass and their spans read once per scan
+    (CommStats.settle). `sync_ranks`: called between the two passes (a
+    barrier, so that ranks without collectives time the same stretch).
+    Returns the poses, diagnostics, final state, launches, collectives and
+    ms per scan: by CUDA events, by the host's clock, and the process's CPU
+    time."""
     import torch
 
     from lidar_odometry_demo_tpu_torch.pipeline import odometry
@@ -2006,29 +2038,33 @@ def _sharded_drive(step, state, scans, mesh, counted: dict, lanes: int = 1):
         diags = []
         for scan in scans:
             s, d = step(s, scan)
+            mesh.stats.settle()
             diags.append(d)
         return s, odometry.stack_diagnostics(diags)
 
     run(state)
     torch.cuda.synchronize()
+    if sync_ranks is not None:
+        sync_ranks()
     for fn in counted.values():
         fn.launches = 0
-    mesh.stats.reset()
+    mesh.stats.reset(device_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
+    t0, c0 = time.perf_counter(), time.process_time()
     start.record()
     final, d = run(state)
     end.record()
     end.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / len(scans)
+    cpu_ms = (time.process_time() - c0) * 1e3 / len(scans)
     return dict(t=d.pose.t, q=d.pose.q, iters=d.icp_iterations, matches=d.num_matches,
                 diverged=d.diverged, map_voxels=d.map_voxels,
                 keys=final.keyframe.keys, count=final.keyframe.count,
                 origin=final.keyframe.origin, state=final,
                 launches={k: fn.launches for k, fn in counted.items()},
                 stats=mesh.stats.as_dict(), ms_per_scan=start.elapsed_time(end) / len(scans),
-                host_ms_per_scan=host_ms)
+                host_ms_per_scan=host_ms, cpu_ms_per_scan=cpu_ms)
 
 
 def halo_view_search_check(view, shard, mesh, queries, cfg) -> dict:
@@ -2071,18 +2107,32 @@ def _view_digest(view) -> str:
     """sha1 of a view's live rows (keys, counts, rows), in key order."""
     import hashlib
 
-    live = view.keys != 0x7FFFFFFF
+    live = view.keys != EMPTY_KEY
     h = hashlib.sha1()
     for x in (view.keys[live], view.count[live], view.tab[live]):
         h.update(x.cpu().numpy().tobytes())
     return h.hexdigest()
 
 
+def halo_view_fields(shard, mesh, queries, cfg) -> dict:
+    """On one rank of a spatial group, after its last scan: the halo view
+    `build_halo_view` makes from this rank's final shard, its digest and
+    live keys, and its search for the queries this rank owns
+    (halo_view_search_check), for check_spatial_ranks."""
+    from lidar_odometry_demo_tpu_torch.parallel import spatial
+
+    view = spatial.build_halo_view(shard, mesh.sp)
+    return dict(view_digest=_view_digest(view), view_rows=view.capacity,
+                shard_rows=shard.capacity, view_live_keys=view.keys[view.keys != EMPTY_KEY],
+                view_search=halo_view_search_check(view, shard, mesh, queries, cfg))
+
+
 def sharded_rank(inputs: str) -> dict:
     """One of phase 10's two ranks (parallel/mesh.py run_ranks, gloo on
     cuda:0): (a) sp = 2, (b) spatial N = 2, (c) dp = 2 with four fleet lanes
     per rank, each a warm-up and a timed pass of the 40 scans; (d) the
-    edge-sharded refine of phase 9's noisy loop. Returns numpy results."""
+    edge-sharded refine of phase 9's noisy loop and the edge-sharded
+    segment-Schur refine of config 5's. Returns numpy results."""
     import torch
 
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig
@@ -2110,13 +2160,8 @@ def sharded_rank(inputs: str) -> dict:
     step = odometry.make_process_scan(cfg, spatial_group=mesh.sp)
     r = _sharded_drive(step, spatial.init_spatial_state(cfg, SHARDED_RANKS, dev), scans, mesh,
                        counted)
-    shard = r.pop("state").keyframe
-    view = spatial.build_halo_view(shard, mesh.sp)
-    r.update(view_digest=_view_digest(view), view_rows=view.capacity,
-             view_live_keys=view.keys[view.keys != 0x7FFFFFFF],
-             view_search=halo_view_search_check(
-                 view, shard, mesh, torch.load(inputs.format(name="queries"),
-                                               weights_only=False), cfg))
+    r.update(halo_view_fields(r.pop("state").keyframe, mesh, torch.load(
+        inputs.format(name="queries"), weights_only=False), cfg))
     out["spatial"] = r
 
     # (c) dp: this rank's four of phase 7's eight lanes
@@ -2131,7 +2176,8 @@ def sharded_rank(inputs: str) -> dict:
     r["lanes"] = (dmesh.lanes(lanes * dmesh.dp).start, dmesh.lanes(lanes * dmesh.dp).stop)
     out["dp"] = r
 
-    # (d) refine: the loop's edges split over the ranks, 10 iterations
+    # (d) refine: the loop's edges split over the ranks, 10 iterations; then
+    # the segment-Schur refine at config 5's shape
     _, _, est_t, est_q, closure = make_noisy_loop(32, 0.03)
     g = pg.chain_from_odometry(est_t, est_q, closures=[(31, 0, closure(31, 0), 1.0)],
                                device=dev)
@@ -2141,7 +2187,92 @@ def sharded_rank(inputs: str) -> dict:
     refined = pg.make_refine_sharded(dmesh, "dp", iterations=10)(pg.pad_edges(g, dmesh.dp))
     out["refine"] = dict(t=refined.poses.t, q=refined.poses.q,
                          ms=(time.perf_counter() - t0) * 1e3, stats=dmesh.stats.as_dict())
+    out["segment"] = sharded_segment_refine(dmesh.axis("dp"), dev)
     return out
+
+
+SEGMENT = dict(poses=512, drift=0.02, stride=8, closures=((504, 0), (256, 0)), iterations=10)
+
+
+def segment_loop(device):
+    """Config 5's pose graph (benchmarks/run_configs.py config5): a 512-pose
+    noisy loop (drift 0.02) with closures (504, 0) and (256, 0), whose
+    indices are multiples of the stride 8. Returns (gt_t, est_t, graph)."""
+    from lidar_odometry_demo_tpu_torch.parallel import pose_graph as pg
+
+    gt_t, _, est_t, est_q, closure = make_noisy_loop(SEGMENT["poses"], SEGMENT["drift"])
+    closures = [(i, j, closure(i, j), 1.0) for i, j in SEGMENT["closures"]]
+    return gt_t, est_t, pg.chain_from_odometry(est_t, est_q, closures=closures, device=device)
+
+
+def sharded_segment_refine(group, device) -> dict:
+    """On one rank of `group`: the segment-Schur refine of `segment_loop`,
+    this rank's slice of the edges (padded to the group's size), one
+    all-reduce of the chain system per iteration. One warm-up run, then one
+    timed run (host clock around a synchronised run). Returns the poses,
+    the ms and the collectives of the timed run."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.parallel import pose_graph as pg
+
+    _, _, g = segment_loop(device)
+    local = pg.shard_edges(pg.pad_edges(g, group.size), group)
+    pg.refine_segment(local, SEGMENT["stride"], SEGMENT["iterations"], group)
+    torch.cuda.synchronize()
+    group.stats.reset(device_timing=True)
+    t0 = time.perf_counter()
+    refined = pg.refine_segment(local, SEGMENT["stride"], SEGMENT["iterations"], group)
+    t, q = refined.poses.t.cpu(), refined.poses.q.cpu()
+    return dict(t=t, q=q, ms=(time.perf_counter() - t0) * 1e3, stats=group.stats.as_dict())
+
+
+def segment_reference(device) -> dict:
+    """The one-process refine_segment of `segment_loop` on `device` (after
+    one warm-up run), with RMS against ground truth before and after."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.parallel import pose_graph as pg
+
+    gt_t, est_t, g = segment_loop(device)
+    pg.refine_segment(g, SEGMENT["stride"], SEGMENT["iterations"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t = pg.refine_segment(g, SEGMENT["stride"], SEGMENT["iterations"]).poses.t.cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+
+    def rms(x):
+        return float(np.sqrt(np.mean(np.sum((x - gt_t) ** 2, -1))))
+
+    return dict(t=t, ms=ms, rms_before=rms(est_t), rms_after=rms(t))
+
+
+def check_segment_ranks(label: str, ranks: list, ref: dict) -> dict:
+    """The ranks' segment refines (sharded_segment_refine) bitwise equal to
+    each other, within 1e-4 m of the one-process refine_segment `ref`, RMS
+    against ground truth halved, one all-reduce per iteration."""
+    segs = [r["segment"] for r in ranks]
+    d_ranks = max(max(float(np.abs(s["t"] - segs[0]["t"]).max()),
+                      float(np.abs(s["q"] - segs[0]["q"]).max())) for s in segs)
+    d_ref = float(np.abs(segs[0]["t"] - ref["t"]).max())
+    reduces = [s["stats"]["by_kind"].get("chain system", 0) for s in segs]
+    st = segs[0]["stats"]
+    log(f"{label}: segment-Schur refine (P = {SEGMENT['poses']}, stride {SEGMENT['stride']}, "
+        f"{SEGMENT['iterations']} iterations, {len(segs)} ranks): {d_ref:.3g} m from the "
+        f"one-process refine_segment (bar 1e-4), ranks {d_ranks:.3g} apart; RMS vs ground truth "
+        f"{ref['rms_before']:.4f} -> {ref['rms_after']:.4f} m; "
+        f"{[round(s['ms'], 1) for s in segs]} ms per {SEGMENT['iterations']} iterations per rank "
+        f"(one process: {ref['ms']:.1f} ms); {reduces[0]} all-reduces, host "
+        f"{st['collective_host_ms']:.3f} ms, device {st['collective_device_ms']:.3f} ms, wait "
+        f"{st['wait_ms']:.3f} ms")
+    if d_ranks != 0.0 or d_ref > 1e-4 or not ref["rms_after"] < 0.5 * ref["rms_before"]:
+        raise AssertionError(f"{label}: segment refine {d_ref} m from the one-process refine "
+                             f"(bar 1e-4), ranks {d_ranks} apart, RMS {ref['rms_before']} -> "
+                             f"{ref['rms_after']}")
+    if reduces != [SEGMENT["iterations"]] * len(segs):
+        raise AssertionError(f"{label}: segment refine all-reduces {reduces}, not one per "
+                             f"iteration")
+    return dict(from_one_process_m=d_ref, ms=[s["ms"] for s in segs], one_process_ms=ref["ms"],
+                rms_before=ref["rms_before"], rms_after=ref["rms_after"], stats=st)
 
 
 def nccl_rank() -> dict:
@@ -2152,6 +2283,7 @@ def nccl_rank() -> dict:
     from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
 
     mesh = mesh_lib.make_mesh(1, 1)
+    mesh.stats.reset(device_timing=True)
     x = torch.arange(6, dtype=torch.float32, device=mesh.device)
     s = mesh.sp.psum(x.clone())
     y = mesh.sp.ppermute_from(x, 1)
@@ -2163,21 +2295,244 @@ def nccl_rank() -> dict:
 def _per_scan(r: dict, n_scans: int) -> str:
     st = r["stats"]
     launches = " / ".join(f"{k} {v / n_scans:.2f}" for k, v in r["launches"].items())
-    return (f"{r['ms_per_scan']:.3f} ms/scan by CUDA events ({r['host_ms_per_scan']:.3f} host); "
-            f"collectives {st['collectives'] / n_scans:.2f}/scan, "
-            f"{st['collective_ms'] / n_scans:.3f} ms/scan in the collectives after "
-            f"{st['wait_ms'] / n_scans:.3f} ms/scan waiting for queued work; halo exchanges "
+    return (f"{r['ms_per_scan']:.3f} ms/scan by CUDA events ({r['host_ms_per_scan']:.3f} host, "
+            f"{r['cpu_ms_per_scan']:.3f} process CPU); "
+            f"collectives {st['collectives'] / n_scans:.2f}/scan, host "
+            f"{st['collective_host_ms'] / n_scans:.3f} ms/scan in the calls after "
+            f"{st['wait_ms'] / n_scans:.3f} ms/scan waiting for queued work, device "
+            f"{st['collective_device_ms'] / n_scans:.3f} ms/scan; halo exchanges "
             f"{st['exchanges'] / n_scans:.2f}/scan, {st['exchanged_bytes'] / n_scans / 1e6:.3f} "
-            f"MB/scan, {st['exchange_ms'] / n_scans:.3f} ms/scan, of which staging "
-            f"{st['staging_ms'] / n_scans:.3f} ms ({st['staged_bytes'] / n_scans / 1e6:.3f} "
-            f"MB/scan); launches per scan {launches}")
+            f"MB/scan, host {st['exchange_host_ms'] / n_scans:.3f} ms/scan (of which staging "
+            f"{st['staging_ms'] / n_scans:.3f} ms, {st['staged_bytes'] / n_scans / 1e6:.3f} "
+            f"MB/scan), device {st['exchange_device_ms'] / n_scans:.3f} ms/scan; launches per "
+            f"scan {launches}")
+
+
+def path_reference(bench: dict, diags: list, odo) -> dict:
+    """What the sharded modes are held to, from phase 3's run (`diags`, the
+    final state in `odo`): poses, iterations and matches per scan, the
+    final map's keys, origin and voxel count, and the drive's ground
+    truth."""
+    from lidar_odometry_demo_tpu_torch.ops.voxel_map import map_size
+
+    km = odo.state.keyframe
+    return dict(t=np.stack([d.pose.t.cpu().numpy() for d in diags]),
+                iters=np.array([int(d.icp_iterations) for d in diags]),
+                matches=np.array([int(d.num_matches) for d in diags]),
+                keys=km.keys.cpu().numpy(), origin=km.origin.cpu().numpy(),
+                voxels=int(map_size(km)), gt_rel=bench["gt_rel"])
+
+
+def voxel_codes(keys: np.ndarray, origin: np.ndarray) -> np.ndarray:
+    """A map's live keys as absolute voxel indices, one int64 code each:
+    keys are relative to the map's origin, and the spatial mode rebases in
+    steps of N where the single path rebases in steps of 1."""
+    from lidar_odometry_demo_tpu_torch.kernels.search import _XOFF, _YB, _YOFF, _ZB, _ZOFF
+
+    k = keys[keys != EMPTY_KEY].astype(np.int64)
+    x = (k >> (_YB + _ZB)) - _XOFF + int(origin[0])
+    y = ((k >> _ZB) & ((1 << _YB) - 1)) - _YOFF + int(origin[1])
+    z = (k & ((1 << _ZB) - 1)) - _ZOFF + int(origin[2])
+    return ((x + (1 << 20)) << 42) | ((y + (1 << 20)) << 21) | (z + (1 << 20))
+
+
+def _ranks_equal(label: str, rs: list, fields) -> None:
+    for f in fields:
+        if not all(np.array_equal(r[f], rs[0][f]) for r in rs[1:]):
+            raise AssertionError(f"{label}: the ranks' {f} differ")
+
+
+def _split_schedule(label: str, rs: list, n_scans: int) -> None:
+    """Every rank launched the split step's schedule: per ICP round (one
+    all-reduce of matches and cost) one K1, and per inner iteration one
+    jtwj_accumulate and one gn_epilogue; two lookups per scan."""
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+
+    inner = OdometryConfig().icp_inner_iterations
+    rounds = rs[0]["stats"]["by_kind"].get("matches,cost", 0)
+    want = {"match_rows": rounds, "jtwj_accumulate": inner * rounds,
+            "gn_epilogue": inner * rounds, "search_sorted": 2 * n_scans}
+    for i, r in enumerate(rs):
+        if r["launches"] != want:
+            raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the split "
+                                 f"schedule {want}")
+
+
+def _drift(label: str, a: dict, ref: dict) -> tuple[float, np.ndarray, float]:
+    """A sharded run's poses against phase 3's: finite and of its shape;
+    returns the largest |dt| (m), the per-scan matches minus phase 3's, and
+    the aligned ATE."""
+    from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
+
+    st = ref["t"]
+    if not np.all(np.isfinite(a["t"])) or a["t"].shape != st.shape:
+        raise AssertionError(f"{label}: non-finite or misshapen poses")
+    per_scan = np.abs(a["t"] - st).max(axis=1)
+    d_matches = a["matches"].astype(np.int64) - ref["matches"]
+    log(f"{label}: |dt| from phase 3 per scan (every 5th scan from 0) "
+        f"{[float(f'{x:.3g}') for x in per_scan[::5]]}, first over 1e-6 m at scan "
+        f"{int(np.argmax(per_scan > 1e-6)) if (per_scan > 1e-6).any() else None}; matches minus "
+        f"phase 3's at the scans that differ "
+        f"{ {int(i): int(d_matches[i]) for i in np.flatnonzero(d_matches)} }")
+    return float(per_scan.max()), d_matches, float(ate_rmse(a["t"], ref["gt_rel"], align=True))
+
+
+def check_sp_ranks(label: str, rs: list, ref: dict, witnesses: dict, bitwise: bool = True,
+                   bar: float = SP_FROM_MAIN_M) -> dict:
+    """An sp mode's ranks (_sharded_drive results) against phase 3 (`ref`,
+    path_reference) and the one-process witnesses of the split sums
+    (`witnesses`, order -> sp_witness): the ranks bitwise each other; with
+    `bitwise` (two ranks per sum, so no order of its own) bitwise the
+    rank-order witness; within `bar` m of phase 3, every scan's matches
+    within SP_MATCHES_FROM_MAIN of the drive's largest count of phase 3's,
+    iterations equal, ATE within
+    1e-4 m of MAIN_PATH_ATE, no scan diverged, the split launch schedule.
+    Returns the numbers."""
+    a, n_scans = rs[0], len(ref["t"])
+    _ranks_equal(label, rs, ("t", "q", "iters", "matches", "map_voxels"))
+    for i, r in enumerate(rs):
+        log(f"{label}, rank {i} ({r.get('device', '')}): {_per_scan(r, n_scans)}")
+    d_main, d_matches, ate = _drift(label, a, ref)
+    rounds = a["stats"]["by_kind"].get("matches,cost", 0)
+    from_witness = {o: max(float(np.abs(a[f] - w[f]).max()) for f in ("t", "q"))
+                    for o, w in witnesses.items()}
+    witness_main = {o: float(np.abs(w["t"] - ref["t"]).max()) for o, w in witnesses.items()}
+    same = all(np.array_equal(a[f], witnesses["rank"][f]) for f in witnesses["rank"])
+    worst_matches = int(np.abs(d_matches).max())
+    matches_bar = SP_MATCHES_FROM_MAIN * int(ref["matches"].max())
+    iters_equal = np.array_equal(a["iters"], ref["iters"])
+    log(f"{label}: ranks bitwise equal; {d_main:.3g} m from phase 3 (bar {bar}); from the "
+        f"one-process witnesses of the split sums (t, q) {from_witness} (bitwise the rank-order "
+        f"one: {same}; the witnesses from phase 3: {witness_main}); matches at most "
+        f"{worst_matches} from phase 3's (bar {matches_bar:.0f}); iterations equal "
+        f"{iters_equal}; ATE {ate:.5f} m; {rounds} ICP rounds (the first scan's included: ICP "
+        f"always runs under a group)")
+    if bitwise and not same:
+        raise AssertionError(f"{label}: not bitwise the one-process witness of the split sums: "
+                             f"something other than the sum order moves the ranks")
+    if d_main > bar or not iters_equal or worst_matches > matches_bar:
+        raise AssertionError(f"{label}: {d_main} m from phase 3 (bar {bar}), iterations differ, "
+                             f"or matches off by {worst_matches} (bar {matches_bar:.0f})")
+    if abs(ate - MAIN_PATH_ATE) > 1e-4 or a["diverged"].any():
+        raise AssertionError(f"{label}: ATE {ate} not within 1e-4 m of {MAIN_PATH_ATE}, or a "
+                             f"scan diverged")
+    _split_schedule(label, rs, n_scans)
+    return dict(ms_per_scan=[r["ms_per_scan"] for r in rs],
+                host_ms_per_scan=[r["host_ms_per_scan"] for r in rs],
+                stats=[r["stats"] for r in rs], launches=a["launches"], from_phase3_m=d_main,
+                from_witness=from_witness, witness_from_phase3_m=witness_main,
+                matches_from_phase3=worst_matches, ate=ate)
+
+
+def check_spatial_ranks(label: str, rs: list, ref: dict, q_valid: np.ndarray) -> dict:
+    """A spatial mode's ranks (_sharded_drive results with
+    halo_view_fields) against phase 3 (`ref`, path_reference): the ranks'
+    poses, iterations, matches, voxel counts and origins bitwise each
+    other's; within SPATIAL_FROM_MAIN_M of phase 3, ATE under ATE_CEILING,
+    no scan diverged, the split launch schedule; the shards' voxels
+    disjoint, as many as the ranks' map_voxels, and phase 3's voxel set but
+    for 1e-3 of it (the trajectories differ in ulps, so a few update points
+    land in other voxels); each rank's halo view holding exactly its own
+    and its ring neighbours' shards (every rank's view alike up to three
+    ranks); each rank's view search bitwise the gathered map's for the
+    queries it owns (q_valid: phase 3's last lookup), the owned queries a
+    partition. Returns the numbers."""
+    a, n, n_scans = rs[0], len(rs), len(ref["t"])
+    _ranks_equal(label, rs, ("t", "q", "iters", "matches", "map_voxels", "origin"))
+    for i, r in enumerate(rs):
+        log(f"{label}, rank {i} ({r.get('device', '')}): {_per_scan(r, n_scans)}")
+    d_main, _, ate = _drift(label, a, ref)
+    if d_main > SPATIAL_FROM_MAIN_M or ate > ATE_CEILING or a["diverged"].any():
+        raise AssertionError(f"{label}: {d_main} m from phase 3 (bar {SPATIAL_FROM_MAIN_M}), ATE "
+                             f"{ate} m, or {int(a['diverged'].sum())} scans diverged")
+    codes = [voxel_codes(r["keys"], r["origin"]) for r in rs]
+    total = sum(len(c) for c in codes)
+    union = np.unique(np.concatenate(codes))
+    differ = len(np.setxor1d(union, voxel_codes(ref["keys"], ref["origin"])))
+    log(f"{label}: {d_main:.3g} m from phase 3, ATE {ate:.5f} m; shards of {a['shard_rows']} "
+        f"rows holding {[len(c) for c in codes]} voxels ({total} in all, the ranks' map_voxels "
+        f"{int(a['map_voxels'][-1])}, phase 3's {ref['voxels']}; {differ} voxels in one map "
+        f"only), disjoint {len(union) == total}; halo views of {a['view_rows']} rows")
+    if len(union) != total or total != int(a["map_voxels"][-1]) or differ > 1e-3 * ref["voxels"]:
+        raise AssertionError(f"{label}: the shards share a voxel ({len(union) != total}), hold "
+                             f"{total} voxels against map_voxels {int(a['map_voxels'][-1])}, or "
+                             f"{differ} voxels differ from phase 3's map (bar "
+                             f"{1e-3 * ref['voxels']:.0f})")
+    live = [r["keys"][r["keys"] != EMPTY_KEY] for r in rs]
+    for i, r in enumerate(rs):
+        held = sorted({i, (i + 1) % n, (i - 1) % n})
+        if not np.array_equal(r["view_live_keys"], np.sort(np.concatenate([live[j]
+                                                                          for j in held]))):
+            raise AssertionError(f"{label}, rank {i}: the halo view does not hold exactly the "
+                                 f"shards of ranks {held}")
+    if n <= 3 and any(r["view_digest"] != a["view_digest"] for r in rs):
+        raise AssertionError(f"{label}: the ranks' halo views differ")
+    for i, r in enumerate(rs):
+        v = r["view_search"]
+        if v["bad_fields"] or v["foreign_matched"]:
+            raise AssertionError(f"{label}, rank {i}: the halo view's search differs from the "
+                                 f"gathered map's in {v['bad_fields']} (or matched a query it "
+                                 f"does not own: {v['foreign_matched']})")
+    if not np.array_equal(sum(r["view_search"]["owned"].astype(np.int32) for r in rs),
+                          q_valid.astype(np.int32)):
+        raise AssertionError(f"{label}: the ranks' owned queries are no partition")
+    log(f"{label}: each rank's halo view holds its own and its ring neighbours' shards; on each "
+        f"rank its search bitwise the search on the merge of the gathered shards "
+        f"({a['view_search']['replicated_rows']} rows), every field, for its owned queries "
+        f"(matched {[r['view_search']['matched'] for r in rs]} of {int(q_valid.sum())}), the "
+        f"owned queries a partition")
+    _split_schedule(label, rs, n_scans)
+    st = a["stats"]
+    return dict(ms_per_scan=[r["ms_per_scan"] for r in rs],
+                host_ms_per_scan=[r["host_ms_per_scan"] for r in rs],
+                stats=[r["stats"] for r in rs], launches=a["launches"], from_phase3_m=d_main,
+                ate=ate, halo_mb_per_scan=st["exchanged_bytes"] / n_scans / 1e6,
+                halo_device_ms_per_scan=st["exchange_device_ms"] / n_scans,
+                halo_host_ms_per_scan=st["exchange_host_ms"] / n_scans)
+
+
+def check_dp_ranks(label: str, rs: list, fleet: dict) -> dict:
+    """A dp fleet's ranks (_sharded_drive results with `lanes`, the (lo,
+    hi) of phase 7's lanes the rank stepped): every lane bitwise phase 7's
+    (`fleet`, run_fleet: poses, iterations, final keys, counts and origin),
+    then the batched launch schedule on every rank. Returns the numbers."""
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+
+    inner = OdometryConfig().icp_inner_iterations
+    fd, fk = fleet["diags"], fleet["state"].keyframe
+    n_scans = fd.pose.t.shape[0]
+    for i, r in enumerate(rs):
+        lo, hi = r["lanes"]
+        same = [np.array_equal(r["t"], fd.pose.t[:, lo:hi].cpu().numpy()),
+                np.array_equal(r["q"], fd.pose.q[:, lo:hi].cpu().numpy()),
+                np.array_equal(r["iters"], fd.icp_iterations[:, lo:hi].cpu().numpy())]
+        same += [np.array_equal(r[f], getattr(fk, f)[lo:hi].cpu().numpy())
+                 for f in ("keys", "count", "origin")]
+        log(f"{label}, rank {i} ({r.get('device', '')}, lanes {lo}-{hi - 1}), per step of "
+            f"{hi - lo}: {_per_scan(r, n_scans)}")
+        if not all(same):
+            raise AssertionError(f"{label}, rank {i}: lanes {lo}-{hi - 1} differ from phase 7's "
+                                 f"(t, q, iterations, keys, count, origin equal = {same})")
+    log(f"{label}: every lane bitwise phase 7's (poses, iterations, final keys, counts, origin)")
+    for i, r in enumerate(rs):
+        rounds = int(r["iters"].max(axis=1).sum())
+        want = {"match_rows": rounds, "jtwj_accumulate": inner * rounds, "gn_epilogue": 0,
+                "search_sorted": int(np.sum(r["iters"].max(axis=1) > 0)) + n_scans}
+        if r["launches"] != want:
+            raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the batched "
+                                 f"schedule {want}")
+    return dict(ms_per_scan=[r["ms_per_scan"] for r in rs],
+                host_ms_per_scan=[r["host_ms_per_scan"] for r in rs],
+                cpu_ms_per_scan=[r["cpu_ms_per_scan"] for r in rs],
+                stats=[r["stats"] for r in rs], launches=rs[0]["launches"])
 
 
 def run_sharded(bench: dict, main_diags: list, main_odo, fleet: dict, refine: dict,
                 device) -> dict:
     """Phase 10: the kernels are built (phase 1) before any rank starts, so
     no rank runs nvcc; two ranks on cuda:0 over gloo run (a)-(d)
-    (sharded_rank), held to phases 3, 7 and 9; the composite search against
+    (sharded_rank), held to phases 3, 7 and 9 and (the segment refine) to
+    the one-process refine_segment on the card; the composite search against
     the replicated one on the main path's map at N = 2 and 4; a world of one
     on NCCL. Returns each mode's launches and numbers."""
     import tempfile
@@ -2185,13 +2540,11 @@ def run_sharded(bench: dict, main_diags: list, main_odo, fleet: dict, refine: di
     import torch
 
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig
-    from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
     from lidar_odometry_demo_tpu_torch.kernels import _build
     from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
     from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
 
     cfg = OdometryConfig()
-    n_scans = len(bench["scans"])
     if not all(_build._lib_path(name).exists() for name in _build.SOURCES):
         raise AssertionError("phase 10: the kernels are not built before the ranks start")
     epilogue = check_gn_epilogue(np.random.default_rng(7), device)
@@ -2241,119 +2594,13 @@ def run_sharded(bench: dict, main_diags: list, main_odo, fleet: dict, refine: di
     witness = sp_witness(cfg, bench["scans"], device, SHARDED_RANKS)
     log(f"sharded: the sp witness (two threads of this process, the split sums added on the "
         f"card in rank order) ran the 40 scans in {time.perf_counter() - t0:.1f} s")
-    st = np.stack([d.pose.t.cpu().numpy() for d in main_diags])
-    s_iters = np.array([int(d.icp_iterations) for d in main_diags])
-    s_matches = np.array([int(d.num_matches) for d in main_diags])
-    results = {"kernel": epilogue}
-    for mode in ("sp", "spatial"):
-        rs = [r[mode] for r in ranks]
-        for f in ("t", "q", "iters", "matches", "map_voxels"):
-            if not all(np.array_equal(rs[0][f], r[f]) for r in rs[1:]):
-                raise AssertionError(f"sharded {mode}: the ranks' {f} differ")
-        a = rs[0]
-        dt = float(np.abs(a["t"] - st).max())
-        ate = ate_rmse(a["t"], bench["gt_rel"], align=True)
-        rounds = a["stats"]["by_kind"].get("matches,cost", 0)
-        for i, r in enumerate(rs):
-            log(f"sharded {mode}, rank {i}: {_per_scan(r, n_scans)}")
-        per_scan = np.abs(a["t"] - st).max(axis=1)
-        d_matches = a["matches"].astype(np.int64) - s_matches
-        log(f"sharded {mode}: |dt| from phase 3 per scan (every 5th scan from 0) "
-            f"{[float(f'{x:.3g}') for x in per_scan[::5]]}, first over 1e-6 m at scan "
-            f"{int(np.argmax(per_scan > 1e-6)) if (per_scan > 1e-6).any() else None}; matches "
-            f"minus phase 3's at the scans that differ "
-            f"{ {int(i): int(d_matches[i]) for i in np.flatnonzero(d_matches)} }")
-        log(f"sharded {mode}: {dt:.3g} m from phase 3, aligned ATE {ate:.5f} m, ICP rounds "
-            f"{rounds} (the first scan's included: ICP always runs under a group), iterations "
-            f"equal to phase 3's: {np.array_equal(a['iters'], s_iters)}, matches equal: "
-            f"{np.array_equal(a['matches'], s_matches)}, diverged {int(a['diverged'].sum())}")
-        if not np.all(np.isfinite(a["t"])) or a["t"].shape != st.shape:
-            raise AssertionError(f"sharded {mode}: non-finite or misshapen poses")
-        if a["diverged"].any():
-            raise AssertionError(f"sharded {mode}: {int(a['diverged'].sum())} scans diverged")
-        want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
-                "gn_epilogue": cfg.icp_inner_iterations * rounds, "search_sorted": 2 * n_scans}
-        for i, r in enumerate(rs):
-            if r["launches"] != want:
-                raise AssertionError(f"sharded {mode}, rank {i}: launches {r['launches']} != "
-                                     f"the split schedule {want}")
-        if mode == "sp":
-            same = {f: np.array_equal(a[f], witness[f]) for f in witness}
-            log(f"sharded sp: bitwise the one-process witness of the split sums: {same}")
-            if not all(same.values()):
-                raise AssertionError(f"sharded sp: the ranks differ from the one-process "
-                                     f"witness of the split sums ({same}): something other "
-                                     f"than the sum order moves them")
-            if dt > SP_FROM_MAIN_M or not np.array_equal(a["iters"], s_iters):
-                raise AssertionError(f"sharded sp: {dt} m from phase 3 (bar {SP_FROM_MAIN_M}), "
-                                     f"or iterations differ")
-            if abs(ate - MAIN_PATH_ATE) > 1e-4:
-                raise AssertionError(f"sharded sp: ATE {ate} not within 1e-4 m of "
-                                     f"{MAIN_PATH_ATE}")
-        else:
-            if dt > 1e-3 or ate > ATE_CEILING:
-                raise AssertionError(f"sharded spatial: {dt} m from phase 3 or ATE {ate} m")
-            keys = [r["keys"] for r in rs]
-            union = np.sort(np.concatenate([k[k != 0x7FFFFFFF] for k in keys]))
-            if not (all(r["view_digest"] == a["view_digest"] for r in rs)
-                    and all(np.array_equal(r["view_live_keys"], union) for r in rs)):
-                raise AssertionError("sharded spatial: the ranks' halo views differ, or do not "
-                                     "hold both shards' keys")
-            if len(set().union(*[set(k[k != 0x7FFFFFFF].tolist()) for k in keys])) != len(union):
-                raise AssertionError("sharded spatial: the shards share a voxel")
-            vs_ = [r["view_search"] for r in rs]
-            for i, v in enumerate(vs_):
-                if v["bad_fields"] or v["foreign_matched"]:
-                    raise AssertionError(f"sharded spatial, rank {i}: the halo view's search "
-                                         f"differs from the replicated map's in "
-                                         f"{v['bad_fields']} (or matched a query it does not "
-                                         f"own: {v['foreign_matched']})")
-            q_valid = lookup[4].cpu().numpy()
-            if not np.array_equal(sum(v["owned"].astype(np.int32) for v in vs_),
-                                  q_valid.astype(np.int32)):
-                raise AssertionError("sharded spatial: the ranks' owned queries are no "
-                                     "partition")
-            log(f"sharded spatial: on each rank the halo view's search bitwise the search on "
-                f"the merge of the gathered shards ({vs_[0]['replicated_rows']} rows), every "
-                f"field, for its owned queries (matched {[v['matched'] for v in vs_]} of "
-                f"{int(q_valid.sum())}), the owned queries a partition")
-            log(f"sharded spatial: final shards of {[int((k != 0x7FFFFFFF).sum()) for k in keys]}"
-                f" voxels (map_voxels {int(a['map_voxels'][-1])}, phase 3's "
-                f"{int((main_odo.state.keyframe.keys != 0x7FFFFFFF).sum())}); the halo views "
-                f"({a['view_rows']} rows) equal on both ranks and hold both shards")
-        results[mode] = dict(ms_per_scan=[r["ms_per_scan"] for r in rs],
-                             host_ms_per_scan=[r["host_ms_per_scan"] for r in rs],
-                             stats=[r["stats"] for r in rs], launches=a["launches"],
-                             from_phase3_m=dt, ate=ate)
-
-    # (c) dp: every lane bitwise phase 7's
-    fd = fleet["diags"]
-    fk = fleet["state"].keyframe
-    for i, r in enumerate(ranks):
-        a = r["dp"]
-        lo, hi = a["lanes"]
-        same = [np.array_equal(a["t"], fd.pose.t[:, lo:hi].cpu().numpy()),
-                np.array_equal(a["q"], fd.pose.q[:, lo:hi].cpu().numpy()),
-                np.array_equal(a["iters"], fd.icp_iterations[:, lo:hi].cpu().numpy())]
-        same += [np.array_equal(a[f], getattr(fk, f)[lo:hi].cpu().numpy())
-                 for f in ("keys", "count", "origin")]
-        log(f"sharded dp, rank {i} (lanes {lo}-{hi - 1}): {_per_scan(a, n_scans)}")
-        if not all(same):
-            raise AssertionError(f"sharded dp, rank {i}: lanes {lo}-{hi - 1} differ from phase "
-                                 f"7's (t, q, iterations, keys, count, origin equal = {same})")
-        it = a["iters"]
-        want = {"match_rows": int(it.max(axis=1).sum()),
-                "jtwj_accumulate": cfg.icp_inner_iterations * int(it.max(axis=1).sum()),
-                "gn_epilogue": 0, "search_sorted": int(np.sum(it.max(axis=1) > 0)) + n_scans}
-        if a["launches"] != want:
-            raise AssertionError(f"sharded dp, rank {i}: launches {a['launches']} != the "
-                                 f"batched schedule {want}")
-    log("sharded dp: every lane bitwise phase 7's (poses, iterations, final keys, counts, "
-        "origin)")
-    results["dp"] = dict(ms_per_scan=[r["dp"]["ms_per_scan"] for r in ranks],
-                         host_ms_per_scan=[r["dp"]["host_ms_per_scan"] for r in ranks],
-                         stats=[r["dp"]["stats"] for r in ranks],
-                         launches=ranks[0]["dp"]["launches"])
+    ref = path_reference(bench, main_diags, main_odo)
+    results = {"kernel": epilogue,
+               "sp": check_sp_ranks("sharded sp", [r["sp"] for r in ranks], ref,
+                                    {"rank": witness}),
+               "spatial": check_spatial_ranks("sharded spatial", [r["spatial"] for r in ranks],
+                                              ref, lookup[4].cpu().numpy()),
+               "dp": check_dp_ranks("sharded dp", [r["dp"] for r in ranks], fleet)}
 
     # (d) the edge-sharded refine against phase 9's loop (direct)
     ref = refine["loop_direct"]
@@ -2368,6 +2615,7 @@ def run_sharded(bench: dict, main_diags: list, main_odo, fleet: dict, refine: di
         raise AssertionError(f"sharded refine: {d_t} m from phase 9 (bar {tol}) or ranks "
                              f"{d_ranks} apart")
     results["refine"] = dict(from_phase9_m=d_t, ms=ranks[0]["refine"]["ms"])
+    results["segment"] = check_segment_ranks("sharded refine", ranks, segment_reference(device))
 
     # the NCCL branch: a world of one on the card
     (nc,) = mesh_lib.run_ranks(nccl_rank, 1, device="cuda", timeout=300)
@@ -2375,13 +2623,16 @@ def run_sharded(bench: dict, main_diags: list, main_odo, fleet: dict, refine: di
           and np.array_equal(nc["psum"], np.arange(6, dtype=np.float32))
           and np.array_equal(nc["recv"], np.arange(6, dtype=np.float32))
           and nc["stats"]["collectives"] == 1 and nc["stats"]["exchanges"] == 1
-          and nc["stats"]["staged_bytes"] == 0)
+          and nc["stats"]["staged_bytes"] == 0
+          and nc["stats"]["collective_device_ms"] > 0 and nc["stats"]["exchange_device_ms"] > 0)
     if not ok:
         raise AssertionError(f"sharded: the NCCL world of one failed its checks: {nc}")
     log(f"sharded: a world of one picks {nc['backend']}; psum and ppermute_from (to itself) "
         f"ran through it ({nc['stats']['collectives']} all-reduce, "
-        f"{nc['stats']['exchanges']} exchange, no staging); multi-card NCCL is not measured "
-        f"here (one card)")
+        f"{nc['stats']['exchanges']} exchange, no staging; device ms by CUDA events "
+        f"{nc['stats']['collective_device_ms']:.4f} / {nc['stats']['exchange_device_ms']:.4f}, "
+        f"host {nc['stats']['collective_host_ms']:.4f} / {nc['stats']['exchange_host_ms']:.4f});"
+        f" NCCL between cards: multicard_smoke.py")
     results["launches"] = {mode: results[mode]["launches"] for mode in ("sp", "spatial", "dp")}
     return results
 

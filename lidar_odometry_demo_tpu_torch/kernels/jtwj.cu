@@ -59,6 +59,7 @@
 // gn_epilogue_kernel: one thread per lane runs the same step_epilogue on the
 // summed H and b.
 
+#include <atomic>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -426,6 +427,24 @@ gn_epilogue_kernel(const float* __restrict__ H, const float* __restrict__ b,
   step_epilogue(sums, t, q, g, prior_w, damping, pose_out);
 }
 
+// The 16-block cluster is non-portable: the kernel opts in once per device,
+// since a function attribute belongs to the current device's context (one
+// process may launch K2 on several cards). The caller has made the tensors'
+// device current.
+constexpr int kMaxDevices = 64;
+std::atomic<bool> cluster_opted_in[kMaxDevices];
+
+cudaError_t opt_in_cluster() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cluster_opted_in[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(gn_step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) cluster_opted_in[dev].store(true, std::memory_order_release);
+  return err;
+}
+
 }  // namespace
 
 // One launch for B lanes at the pose (t, q). Step mode: guess_t given,
@@ -448,8 +467,7 @@ extern "C" int gn_step_launch(const void* source_local, const void* plane_origin
                               float huber_delta, float prior_w, float damping, void* H,
                               void* b, void* pose_out, void* stream) {
   if (B == 0) return 0;
-  static const cudaError_t opted_in = cudaFuncSetAttribute(
-      gn_step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  const cudaError_t opted_in = opt_in_cluster();
   if (opted_in != cudaSuccess) return (int)opted_in;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;

@@ -119,8 +119,10 @@ def search_sorted_plain(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tens
 def query_world(query_local: torch.Tensor, pose_R: torch.Tensor,
                 pose_t: torch.Tensor) -> torch.Tensor:
     """The neighbourhood lookup's world points, rot_pts(q, R) + t (the
-    kernel repeats this operation order bit for bit)."""
-    return rot_pts(query_local, pose_R) + pose_t
+    kernel repeats this operation order bit for bit). query_local (..., Q,
+    3) with pose_R (..., 3, 3) and pose_t (..., 3): one pose, or one per
+    lane."""
+    return rot_pts(query_local, pose_R) + pose_t[..., None, :]
 
 
 def _column_keys(origin: torch.Tensor, q_world: torch.Tensor, query_valid: torch.Tensor,

@@ -77,39 +77,82 @@ def rank_device(device_type: str, local_rank: int) -> torch.device:
     return torch.device("cuda", local_rank % torch.cuda.device_count())
 
 
+def _stream_event(device: torch.device) -> torch.cuda.Event:
+    """A timing event recorded now on `device`'s current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
 @dataclass
 class CommStats:
-    """What one group's collectives cost this process: counts and host ms,
-    and the bytes and ms of the host staging of CUDA tensors on gloo.
+    """What one group's collectives cost this process: counts, host ms and
+    device ms, and the bytes and ms of the host staging of CUDA tensors on
+    gloo.
 
-    A gloo collective or exchange of CUDA tensors first waits for the
-    device work queued before it (its copy to the host would); that wait
-    is taken apart, on the host's clock, into `wait_ms`, so
-    `collective_ms`, `exchange_ms` and `staging_ms` cover the collective,
-    the exchange and the copies alone. On NCCL nothing waits: its
-    `collective_ms` is the host's time to enqueue the all-reduce."""
+    Host ms (`collective_host_ms`, `exchange_host_ms`) are the host's clock
+    around the call. On gloo that covers the transfer: a gloo collective or
+    exchange of CUDA tensors first waits for the device work queued before
+    it (its copy to the host would), and that wait is taken apart into
+    `wait_ms`, so the host ms cover the collective, the exchange and the
+    copies alone. On NCCL the call returns once the work is queued, so the
+    host ms are the enqueue. The device ms (`collective_device_ms`,
+    `exchange_device_ms`) are taken only while `device_timing` is on
+    (`reset(device_timing=True)`), and only on NCCL: CUDA events recorded
+    on the rank's current stream just before the call and just after it
+    (after the stream's wait for NCCL's), the time from the stream reaching
+    the collective, the wait for the peers included, to its end. They are
+    read in `settle()`, which waits for the last event once: call it once
+    per scan (as_dict calls it too), never per collective. Otherwise no
+    event is made and they stay 0."""
 
     collectives: int = 0
-    collective_ms: float = 0.0
+    collective_host_ms: float = 0.0
+    collective_device_ms: float = 0.0
     wait_ms: float = 0.0
     exchanges: int = 0
-    exchange_ms: float = 0.0
+    exchange_host_ms: float = 0.0
+    exchange_device_ms: float = 0.0
     exchanged_bytes: int = 0
     staged_bytes: int = 0
     staging_ms: float = 0.0
     by_kind: dict = field(default_factory=dict)
+    device_timing: bool = False
+    # (field, start event, end event) of the device spans not read yet
+    pending: list = field(default_factory=list, repr=False)
 
-    def reset(self) -> None:
+    def reset(self, device_timing: bool = False) -> None:
+        """Every count and time to 0; device spans taken from now on only
+        with `device_timing`."""
         for f in ("collectives", "exchanges", "exchanged_bytes", "staged_bytes"):
             setattr(self, f, 0)
-        for f in ("collective_ms", "wait_ms", "exchange_ms", "staging_ms"):
+        for f in ("collective_host_ms", "collective_device_ms", "wait_ms", "exchange_host_ms",
+                  "exchange_device_ms", "staging_ms"):
             setattr(self, f, 0.0)
         self.by_kind = {}
+        self.device_timing = device_timing
+        self.pending = []
+
+    def add_span(self, name: str, start, end) -> None:
+        """Keep a device span (start, end events) for `name` (the field of
+        device ms it adds to) until the next settle()."""
+        self.pending.append((name, start, end))
+
+    def settle(self) -> None:
+        """Wait for the last pending span's end and add every pending span's
+        device ms to its field."""
+        if not self.pending:
+            return
+        self.pending[-1][2].synchronize()
+        for name, start, end in self.pending:
+            setattr(self, name, getattr(self, name) + start.elapsed_time(end))
+        self.pending = []
 
     def as_dict(self) -> dict:
+        self.settle()
         return {f: getattr(self, f) for f in (
-            "collectives", "collective_ms", "wait_ms", "exchanges", "exchange_ms",
-            "exchanged_bytes",
+            "collectives", "collective_host_ms", "collective_device_ms", "wait_ms",
+            "exchanges", "exchange_host_ms", "exchange_device_ms", "exchanged_bytes",
             "staged_bytes", "staging_ms")} | {"by_kind": dict(self.by_kind)}
 
 
@@ -142,16 +185,28 @@ class Group:
             torch.cuda.current_stream(x.device).synchronize()
             self.stats.wait_ms += (time.perf_counter() - t0) * 1e3
 
+    def _device_timed(self, x: torch.Tensor) -> bool:
+        """NCCL runs on the device: while the stats ask for it, its
+        collectives are timed by CUDA events on the current stream as well
+        (CommStats)."""
+        return self.stats.device_timing and x.is_cuda and self.backend == "nccl"
+
     def psum(self, x: torch.Tensor, kind: str = "psum") -> torch.Tensor:
         """All-reduce x with SUM over the group, in place; returns x. Every
         rank gets the same bits (each element is reduced once and shared)."""
         if not self.live:
             return x
         self._wait_for_queued(x)
+        on_device = self._device_timed(x)
+        if on_device:
+            start = _stream_event(x.device)
         t0 = time.perf_counter()
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.pg)
         self.stats.collectives += 1
-        self.stats.collective_ms += (time.perf_counter() - t0) * 1e3
+        self.stats.collective_host_ms += (time.perf_counter() - t0) * 1e3
+        if on_device:
+            self.stats.add_span("collective_device_ms", start,
+                                _stream_event(x.device))
         self._count(kind)
         return x
 
@@ -169,6 +224,9 @@ class Group:
         src = self.ranks[(self.rank + offset) % self.size]
         dst = self.ranks[(self.rank - offset) % self.size]
         self._wait_for_queued(xs[0])
+        on_device = self._device_timed(xs[0])
+        if on_device:
+            start = _stream_event(xs[0].device)
         t0 = time.perf_counter()
         stage = self.backend == "gloo" and xs[0].is_cuda
         if stage:  # gloo sends no CUDA tensor: through pinned host memory
@@ -198,7 +256,10 @@ class Group:
             out = recv
         self.stats.exchanges += 1
         self.stats.exchanged_bytes += 2 * n_bytes
-        self.stats.exchange_ms += (time.perf_counter() - t0) * 1e3
+        self.stats.exchange_host_ms += (time.perf_counter() - t0) * 1e3
+        if on_device:
+            self.stats.add_span("exchange_device_ms", start,
+                                _stream_event(xs[0].device))
         self._count("ppermute")
         return out[0] if single else out
 

@@ -1,7 +1,9 @@
 """Pose-graph refinement: Gauss-Newton over keyframe poses with a direct, a
 Schur-complement and a block-sparse segment-Schur solver (port of the JAX
 ``parallel/pose_graph.py``), and the edge-sharded refinement over a mesh axis's
-ranks, `make_refine_sharded`.
+ranks: `make_refine_sharded` (dense and Schur solves) and `refine_segment`
+with a `group` (the segment-Schur solve), each rank on its slice of the edges
+(`shard_edges`).
 
 - nodes: keyframe poses X_i in SE(3) (a `Pose` with a (P,) batch),
 - edges: relative-pose constraints Z_ij (odometry chain + loop closures),
@@ -212,7 +214,7 @@ def solve_schur(H, b, is_separator: torch.Tensor, damping: float = 1e-6):
 # block-sparse segment Schur: O(P * 6^3) instead of dense O((6P)^3)
 # ---------------------------------------------------------------------------
 
-def build_chain_system(g: PoseGraph, stride: int):
+def build_chain_system(g: PoseGraph, stride: int, group=None):
     """Block-sparse normal equations for a chain + separator-aligned
     closures.
 
@@ -221,6 +223,12 @@ def build_chain_system(g: PoseGraph, stride: int):
     coordinates, b (P,6)). Every non-chain edge must join two separator
     poses (indices divisible by `stride`), which keeps each interior
     segment exactly block-tridiagonal.
+
+    With a `group` (parallel/mesh.py; the JAX `axis_name`), g holds this
+    rank's slice of the edges (`shard_edges`) and the four arrays are
+    summed over the group, in one all-reduce of them packed into one
+    buffer. A padding edge adds nothing: its Jacobians are zero, the chain
+    scatter skips it (0 != 0 + 1) and S_extra sends it to the virtual row.
     """
     P = g.poses.t.shape[0]
     n_sep = P // stride
@@ -246,6 +254,11 @@ def build_chain_system(g: PoseGraph, stride: int):
     S_extra.index_put_((ci, cj), Hij, accumulate=True)
     S_extra.index_put_((cj, ci), Hij.transpose(-1, -2), accumulate=True)
     S_extra[n_sep, n_sep] = 0.0
+    if group is not None:
+        parts = (diag, off, S_extra, b)
+        flat = group.psum(torch.cat([x.reshape(-1) for x in parts]), "chain system")
+        diag, off, S_extra, b = (x.view_as(p) for x, p in
+                                 zip(flat.split([p.numel() for p in parts]), parts))
     return diag, off, S_extra, b
 
 
@@ -363,14 +376,20 @@ def _step(g: PoseGraph, dx: torch.Tensor) -> PoseGraph:
     return g._replace(poses=se3.apply_delta(g.poses, dx))
 
 
-def refine_segment(g: PoseGraph, stride: int = 8, iterations: int = 10) -> PoseGraph:
+def refine_segment(g: PoseGraph, stride: int = 8, iterations: int = 10,
+                   group=None) -> PoseGraph:
     """Gauss-Newton refinement through the segment-Schur solver. P must be a
     multiple of `stride`; every loop closure must join two separator poses
-    (index % stride == 0)."""
+    (index % stride == 0).
+
+    With a `group` (the JAX `axis_name`), g holds this rank's slice of the
+    edges (`shard_edges`) and the poses of the whole graph: every iteration
+    sums the chain system over the group (one all-reduce) and every rank
+    solves the same system, so the poses stay replicated."""
     P = g.poses.t.shape[0]
     assert P % stride == 0, (P, stride)
     for _ in range(iterations):
-        diag, off, S_extra, b = build_chain_system(g, stride)
+        diag, off, S_extra, b = build_chain_system(g, stride, group)
         g = _step(g, solve_segment_schur(diag, off, S_extra, b, stride))
     return g
 
@@ -392,6 +411,20 @@ def pad_edges(g: PoseGraph, multiple: int) -> PoseGraph:
         edge_w_rot=zpad(g.edge_w_rot), edge_w_t=zpad(g.edge_w_t),
         edge_valid=zpad(g.edge_valid),
     )
+
+
+def shard_edges(g: PoseGraph, group) -> PoseGraph:
+    """g with only this rank's contiguous 1/N of the edges (N the group's
+    size), the poses whole. The edges must be padded to a multiple of N
+    (pad_edges), or this raises; a slice may hold padding alone."""
+    E, n = g.edge_i.shape[0], group.size
+    if E % n:
+        raise ValueError(f"pad edges to a multiple of {n} (got {E})")
+    mine = slice(group.rank * (E // n), (group.rank + 1) * (E // n))
+    return g._replace(edge_i=g.edge_i[mine], edge_j=g.edge_j[mine],
+                      edge_z=se3.Pose(g.edge_z.t[mine], g.edge_z.q[mine]),
+                      edge_w_rot=g.edge_w_rot[mine], edge_w_t=g.edge_w_t[mine],
+                      edge_valid=g.edge_valid[mine])
 
 
 def refine(g: PoseGraph, iterations: int = 10, use_schur: bool = False,
@@ -418,14 +451,7 @@ def make_refine_sharded(mesh, axis: str = "dp", iterations: int = 10,
     group = mesh.axis(axis)
 
     def run(g: PoseGraph) -> PoseGraph:
-        E, n = g.edge_i.shape[0], group.size
-        if E % n:
-            raise ValueError(f"pad edges to a multiple of {n} (got {E})")
-        mine = slice(group.rank * (E // n), (group.rank + 1) * (E // n))
-        local = g._replace(edge_i=g.edge_i[mine], edge_j=g.edge_j[mine],
-                           edge_z=se3.Pose(g.edge_z.t[mine], g.edge_z.q[mine]),
-                           edge_w_rot=g.edge_w_rot[mine], edge_w_t=g.edge_w_t[mine],
-                           edge_valid=g.edge_valid[mine])
+        local = shard_edges(g, group)
         P = g.poses.t.shape[0]
         is_sep = torch.arange(P, device=g.poses.t.device) % separator_stride == 0
         for _ in range(iterations):

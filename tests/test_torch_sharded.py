@@ -22,7 +22,13 @@ Bars:
   and the final keys, counts and origin equal; at sp = 1 each lane bitwise
   the port's single-process batched run;
 - refine over N = 2, 4 ranks: within 2e-3 (tests/test_pose_graph.py's bar)
-  of the JAX `make_refine_sharded` at the same N and of the port's refine.
+  of the JAX `make_refine_sharded` at the same N and of the port's refine;
+- the segment-Schur refine over N = 2, 4 ranks (a 64-pose loop, stride 8,
+  the edges padded to N): the summed chain system within 1e-5 of its scale
+  of the JAX `build_chain_system(axis_name="dp")` under `shard_map` at the
+  same N and of the port's one-process system, the refined poses within
+  1e-4 m of the JAX sharded `refine_segment` and of the port's own, the
+  ranks bitwise equal.
 """
 
 import jax
@@ -33,6 +39,7 @@ import torch
 
 from lidar_odometry_demo_tpu.config import TINY as JTINY
 from lidar_odometry_demo_tpu.io.simulator import simulate_sequence
+from lidar_odometry_demo_tpu.ops import se3 as jse3
 from lidar_odometry_demo_tpu.ops.cloud import scan_from_numpy as jax_scan
 from lidar_odometry_demo_tpu.parallel import batched as jbatched
 from lidar_odometry_demo_tpu.parallel import mesh as jmesh
@@ -54,6 +61,9 @@ DRIVE_SEEDS = (2, 3)
 LANE_DRIVES = [0, 1, 0, 1]  # B = 4: each drive twice
 SP_DRIVE = 1                # the sp runs' drive (seed 3)
 TIMEOUT = 300.0
+SEG_POSES, SEG_STRIDE, SEG_ITERATIONS = 64, 8, 10
+SEG_CLOSURES = [(56, 0), (32, 0)]  # separator poses (index % stride == 0)
+CHAIN_SYSTEM = ("diag", "off", "S_extra", "b")
 
 
 def _drives():
@@ -78,7 +88,7 @@ def _jax_scans_b(lane_raw):
     return jax.tree.map(lambda *xs: jnp.stack(xs), *steps)
 
 
-def _sharded_ranks(n, drives, graph):
+def _sharded_ranks(n, drives, graph, seg_graph):
     """Every mode of this module on one rank of an n-rank gloo group."""
     out = {}
     # the mesh: one sp group of all n ranks
@@ -118,6 +128,16 @@ def _sharded_ranks(n, drives, graph):
     rm = mesh_lib.make_mesh(n, 1, "cpu")
     refined = pg.make_refine_sharded(rm, "dp", iterations=5)(pg.pad_edges(graph, n))
     out["refine"] = refined.poses.t
+
+    # the segment-Schur refine: the 64-pose loop's edges over all n ranks
+    group = rm.axis("dp")
+    local = pg.shard_edges(pg.pad_edges(seg_graph, n), group)
+    rm.stats.reset()
+    system = pg.build_chain_system(local, SEG_STRIDE, group)
+    refined = pg.refine_segment(local, SEG_STRIDE, SEG_ITERATIONS, group)
+    out["segment"] = dict(system=system, t=refined.poses.t, q=refined.poses.q,
+                          all_reduces=rm.stats.by_kind.get("chain system", 0),
+                          collectives=rm.stats.collectives)
     return out
 
 
@@ -146,9 +166,20 @@ def loop(drives):
 
 
 @pytest.fixture(scope="module")
-def ranks(drives, loop):
+def seg_loop():
+    """The 64-pose loop with two separator-aligned closures, in both
+    packages: (gt_t, est_t, JAX graph, port graph)."""
+    from test_torch_pose_graph import _graphs, _make_noisy_loop
+
+    gt_t, gt_q, est_t, est_q = _make_noisy_loop(P_n=SEG_POSES, drift=0.02)
+    return (gt_t, est_t, *_graphs(est_t, est_q, gt_t, gt_q, SEG_CLOSURES))
+
+
+@pytest.fixture(scope="module")
+def ranks(drives, loop, seg_loop):
     """{n: [rank 0's results, ...]} for n = 2 and 4 ranks."""
-    return {n: mesh_lib.run_ranks(_sharded_ranks, n, n, drives, loop[1], timeout=TIMEOUT)
+    return {n: mesh_lib.run_ranks(_sharded_ranks, n, n, drives, loop[1], seg_loop[3],
+                                  timeout=TIMEOUT)
             for n in (2, 4)}
 
 
@@ -261,6 +292,55 @@ def test_sp_ranks_are_the_one_process_witness(ranks, drives):
         np.testing.assert_array_equal(sp[f], witness[f], err_msg=f)
 
 
+@pytest.mark.parametrize("order, want", [("rank", 1.0), ("pairwise", 0.0)])
+def test_thread_group_adds_in_its_order(order, want):
+    """chip_smoke.py's ThreadGroup (the sp witnesses' group) adds four
+    threads' tensors in its order: 1e8, 1, -1e8, 1 in float32 is
+    ((1e8 + 1) - 1e8) + 1 = 1 in rank order and (1e8 + 1) + (-1e8 + 1) = 0
+    pairwise; every thread gets the same sum. An unknown order is
+    refused."""
+    import importlib.util
+    import pathlib
+    import threading
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shared = smoke.ThreadGroup.shared(4, order)
+    xs = [torch.tensor([v], dtype=torch.float32) for v in (1e8, 1.0, -1e8, 1.0)]
+    outs = [None] * 4
+
+    def rank(r):
+        outs[r] = smoke.ThreadGroup(r, shared).psum(xs[r].clone())
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert [float(o) for o in outs] == [want] * 4
+    with pytest.raises(ValueError, match="order"):
+        smoke.ThreadGroup.shared(4, "reversed")
+
+
+def test_comm_stats_time_the_device_only_when_asked():
+    """A Group times its NCCL collectives of CUDA tensors with CUDA events
+    only after its stats were reset with device_timing; a plain reset turns
+    it off again, and gloo or CPU tensors are never timed on the device."""
+    import types
+
+    cuda = types.SimpleNamespace(is_cuda=True)
+    nccl = mesh_lib.Group(None, [0, 1], 0, "nccl", mesh_lib.CommStats())
+    gloo = mesh_lib.Group(None, [0, 1], 0, "gloo", nccl.stats)
+    assert not nccl._device_timed(cuda)
+    nccl.stats.reset(device_timing=True)
+    assert nccl._device_timed(cuda) and not gloo._device_timed(cuda)
+    assert not nccl._device_timed(torch.zeros(1))
+    nccl.stats.reset()
+    assert not nccl._device_timed(cuda) and nccl.stats.pending == []
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_dp_matches_jax_at_the_same_mesh(ranks, drives, single, n):
     dp, sp = 2, n // 2
@@ -309,6 +389,88 @@ def test_refine_sharded_refuses_unpadded_edges(loop):
     with pytest.raises(ValueError, match="multiple of 2"):
         pg.make_refine_sharded(m, "dp")(loop[1]._replace(
             edge_i=loop[1].edge_i[:31], edge_j=loop[1].edge_j[:31]))
+
+
+def _jax_segment_sharded(jg, n):
+    """The JAX package's edge-sharded segment refine on its n-device CPU
+    fabric: the first chain system (build_chain_system with axis_name) and
+    the poses after refine_segment with axis_name, under shard_map."""
+    from jax.sharding import PartitionSpec as P
+
+    def local(pt, pq, ei, ej, zt, zq, wr, wt, valid):
+        g = jpg.PoseGraph(poses=jse3.Pose(pt, pq), edge_i=ei, edge_j=ej,
+                          edge_z=jse3.Pose(zt, zq), edge_w_rot=wr, edge_w_t=wt,
+                          edge_valid=valid)
+        system = jpg.build_chain_system(g, SEG_STRIDE, axis_name="dp")
+        out = jpg.refine_segment(g, SEG_STRIDE, SEG_ITERATIONS, axis_name="dp")
+        return system, out.poses.t
+
+    f = jax.jit(jax.shard_map(local, mesh=jmesh.make_mesh(dp=n, sp=1),
+                              in_specs=(P(), P()) + (P("dp"),) * 7,
+                              out_specs=((P(),) * 4, P()), check_vma=False))
+    g = jpg.pad_edges(jg, n)
+    system, t = f(g.poses.t, g.poses.q, g.edge_i, g.edge_j, g.edge_z.t, g.edge_z.q,
+                  g.edge_w_rot, g.edge_w_t, g.edge_valid)
+    return [np.asarray(x) for x in system], np.asarray(t)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_refine_segment_sharded_matches_jax(ranks, seg_loop, n):
+    gt_t, est_t, jg, tg = seg_loop
+    outs = [o["segment"] for o in ranks[n]]
+    for o in outs[1:]:  # every rank sums and solves the same system
+        for name, a, b in zip(CHAIN_SYSTEM, o["system"], outs[0]["system"]):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        np.testing.assert_array_equal(o["t"], outs[0]["t"])
+        np.testing.assert_array_equal(o["q"], outs[0]["q"])
+    got = outs[0]
+    # one all-reduce per chain system: the first one above, then one per iteration
+    assert got["all_reduces"] == got["collectives"] == SEG_ITERATIONS + 1
+    want_sys, want_t = _jax_segment_sharded(jg, n)
+    one = pg.build_chain_system(tg, SEG_STRIDE)
+    for name, a, w, o in zip(CHAIN_SYSTEM, got["system"], want_sys, one):
+        scale = max(float(np.abs(w).max()), 1.0)
+        np.testing.assert_allclose(a, w, atol=1e-5 * scale, rtol=0, err_msg=name)
+        np.testing.assert_allclose(a, o.numpy(), atol=1e-5 * scale, rtol=0, err_msg=name)
+    np.testing.assert_allclose(got["t"], want_t, atol=1e-4, rtol=0)
+    mine = pg.refine_segment(tg, SEG_STRIDE, SEG_ITERATIONS).poses.t.numpy()
+    np.testing.assert_allclose(got["t"], mine, atol=1e-4, rtol=0)
+    rms = [float(np.sqrt(np.mean(np.sum((t - gt_t) ** 2, -1)))) for t in (got["t"], est_t)]
+    assert rms[0] < 0.5 * rms[1]
+
+
+def test_chain_system_slices_add_up_and_padding_adds_nothing(seg_loop):
+    """The edge slices' chain systems, added, are the whole graph's (within
+    1e-5 of the scale), and a slice of padding alone is exactly zero: its
+    Jacobians are zero, the chain scatter skips (0, 0) and S_extra sends it
+    to the virtual row. The 65 edges padded to 128 over four slices: the
+    third holds one edge, the fourth none."""
+    tg = seg_loop[3]
+    padded = pg.pad_edges(tg, 128)
+    slices = [pg.shard_edges(padded, mesh_lib.Group(None, [0, 1, 2, 3], r, "gloo",
+                                                    mesh_lib.CommStats()))
+              for r in range(4)]
+    assert not slices[3].edge_valid.any() and int(slices[2].edge_valid.sum()) == 1
+    parts = [pg.build_chain_system(s, SEG_STRIDE) for s in slices]
+    for name, x in zip(CHAIN_SYSTEM, parts[3]):
+        assert not x.any(), name
+    whole = pg.build_chain_system(tg, SEG_STRIDE)
+    for i, (name, w) in enumerate(zip(CHAIN_SYSTEM, whole)):
+        total = sum(p[i] for p in parts)
+        scale = max(float(w.abs().max()), 1.0)
+        np.testing.assert_allclose(total.numpy(), w.numpy(), atol=1e-5 * scale, rtol=0,
+                                   err_msg=name)
+
+
+def test_shard_edges_refuses_unpadded_edges(seg_loop):
+    """The segment refine's slices, like make_refine_sharded's, need the
+    edges padded to a multiple of the group's size."""
+    tg = seg_loop[3]
+    two = mesh_lib.Group(None, [0, 1], 1, "gloo", mesh_lib.CommStats())
+    with pytest.raises(ValueError, match="multiple of 2"):
+        pg.shard_edges(tg, two)  # 65 edges
+    local = pg.shard_edges(pg.pad_edges(tg, 2), two)
+    assert local.edge_i.shape == (33,) and local.poses.t.shape == (SEG_POSES, 3)
 
 
 # --------------------------------------------------------------------------

@@ -289,3 +289,30 @@ def test_sp_and_spatial_groups_are_exclusive():
     g = mesh_lib.make_mesh(1, 1, "cpu").sp
     with pytest.raises(ValueError, match="pick one"):
         todo.make_process_scan(TINY, sp_group=g, spatial_group=g)
+
+
+def test_spatial_step_over_lanes_matches_jax(inputs):
+    """Two lanes (both drives) through the batched spatial runner in one
+    process (a mesh of one: one shard per lane) against the JAX batched
+    spatial runner at dp = 2 x sp = 1: t within 1e-5, q within 1e-6,
+    iterations, matches and the final shards equal. With more than one lane
+    per rank, ICP's owner mask takes each lane's own guess pose
+    (query_world over a lane axis)."""
+    _, _, drives = inputs
+    per = [[port_scan(*r, TINY.max_raw_points, "cpu") for r in drive] for drive in drives]
+    scans_b = LidarScan(*(torch.stack([torch.stack([getattr(lane[s], f) for lane in per])
+                                       for s in range(N_SCANS)]) for f in LidarScan._fields))
+    run = spatial.make_batched_spatial_sequence_runner(TINY, mesh_lib.make_mesh(1, 1, "cpu"))
+    state, d = run(spatial.init_batched_spatial_state(TINY, 2, 1, "cpu"), scans_b)
+    jrun = jspatial.make_batched_spatial_sequence_runner(JTINY, jmesh.make_mesh(dp=2, sp=1))
+    scans = jax.tree.map(lambda a, b: jnp.stack([a, b], axis=1),
+                         *[_jax_scans(drive) for drive in drives])
+    jfinal, jd = jrun(jspatial.init_batched_spatial_state(JTINY, dp=2, sp=1), scans)
+    np.testing.assert_allclose(d.pose.t.numpy(), np.asarray(jd.pose.t), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(d.pose.q.numpy(), np.asarray(jd.pose.q), atol=1e-6, rtol=0)
+    for f, jf in (("icp_iterations", "icp_iterations"), ("num_matches", "num_matches")):
+        np.testing.assert_array_equal(getattr(d, f).numpy(), np.asarray(getattr(jd, jf)),
+                                      err_msg=f)
+    for f in ("keys", "count", "origin"):
+        np.testing.assert_array_equal(getattr(state.keyframe, f).numpy(),
+                                      np.asarray(getattr(jfinal.keyframe, f))[:, 0], err_msg=f)
