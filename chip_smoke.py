@@ -17,8 +17,16 @@ Phases, each of which raises (non-zero exit) on failure:
    Gauss-Newton step) at
    Q = 8192, 8115 and 1, H and b as before, pose within 1e-6, step norm
    rtol 1e-5, two runs bitwise equal, and 100 back-to-back steps on one
-   workspace equal. CUDA event times of every mode and its plain version,
-   of K2's step at Q = 1 and of a one-element torch op (the launch floor);
+   workspace equal. K2's split-step entry points (`gn_sum_step`, and K2e,
+   `gn_epilogue`) on the parts of N = 1, 2 and 4 fake ranks (slices of a
+   Q = 8192 set), at B = 1 and at B = 8 with lane 3 inactive: bitwise the
+   launch sequence they replace (the parts added in rank order by torch, K2e
+   on that one sum, `jtwj_accumulate` at its pose), K2e at N = 1 bitwise the
+   fused step, and within the K2 tolerances above of their plain versions
+   (for the new part, rtol taken against the lane's largest entry).
+   CUDA event times of every mode and its plain version (the split-step
+   entry points at N = 2, B = 1 and 8, and N = 4), of K2's step at Q = 1 and
+   of a one-element torch op (the launch floor);
 3. the main path, `LidarOdometry(device="cuda")` at the full VLP16
    configuration `OdometryConfig()`, on the 40-scan bench drive (seed 42,
    5 m/s, 0.08 rad/s): one warm-up pass, one timed pass. It fails if a
@@ -96,11 +104,8 @@ Phases, each of which raises (non-zero exit) on failure:
    with a closure, direct and Schur (RMS against ground truth halved, pose
    0 within 1e-3 m); the segment Schur solver at P = 256, stride 8; the
    CLI's `refine` (and `--schur`) on phase 3's TUM. No kernel launches;
-10. the sharded modes on one H100. K2's epilogue entry point (`gn_epilogue`,
-   the second part of a step split around a sum over ranks) against its
-   plain version at Q = 8192, B = 1 and B = 8 with lane 3 inactive: pose
-   within 1e-6, and accumulate-then-epilogue bitwise the fused step. The
-   composite view of the column-sharded map on the card: phase 3's final
+10. the sharded modes on one H100. K2's split-step entry points must not
+   have run on phases 3-9. The composite view of the column-sharded map on the card: phase 3's final
    map split into N = 2 and 4 shards, each rank's view merged from its
    shard and its ring neighbours' (131,072 and 98,304 rows), searched by K3
    and K1 at one more step's guess pose: every owned query bitwise the
@@ -108,8 +113,11 @@ Phases, each of which raises (non-zero exit) on failure:
    kernels built before, so no rank runs nvcc; the inputs handed over as
    files): (a) sp = 2 on the bench drive, bitwise (poses, iterations,
    matches) the one-process witness of the split sums (the same two halves
-   in two threads of the parent, H, b, matches and costs added on the card
-   in rank order: sp_witness), and within 1e-4 m of phase 3 (the JAX
+   in two threads of the parent, their parts of H, b, matches and costs
+   gathered and added in rank order as the ranks add them: sp_witness), with
+   the split schedule (per ICP round one gather of matches and costs, and
+   four of H and b, one K1, one `jtwj_accumulate`, three `gn_sum_step`, one
+   K2e), and within 1e-4 m of phase 3 (the JAX
    package's bar for an sp sequence, tests/test_parallel.py:147) with equal
    iterations and ATE within 1e-4 m of 0.00936 m; (b) spatial N = 2, within
    1e-3 m of phase 3, ATE under 0.03 m, the shards disjoint, both ranks'
@@ -132,13 +140,15 @@ Phases, each of which raises (non-zero exit) on failure:
 
 Prints a `kernels` JSON line (each kernel with its launches on every path,
 `launches_live` the live phase's, `launches_sharded_sp` / `_spatial` /
-`_dp` phase 10's per rank, K2's epilogue entry point as a kernel of its
-own whose `launches` are the sp path's,
-its times, bound and plain time at the main path's shapes and at B = 8,
-and `redesigned`: the PR that last redesigned it, or null), the card's name
-and power limit, then as its last line
+`_dp` phase 10's per rank, K2's split-step entry points `gn_sum_step` and
+`gn_epilogue` (K2e) as kernels of their own whose `launches` are the sp
+path's, its times, bound and plain time at the main path's shapes and at
+B = 8), the card's name and power limit, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
-Exits non-zero without a result when no CUDA device is present.
+Exits non-zero without a result when no CUDA device is present. Every
+process it starts (the kernel builds, the simulation workers, the UDP
+sender, the ranks and multiprocessing's resource tracker) has ended and
+been reaped when it exits.
 """
 
 from __future__ import annotations
@@ -153,6 +163,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+F32_EPS = float(np.finfo(np.float32).eps)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -340,7 +351,7 @@ def check_match_rows(rng, device) -> dict:
     return dict(name="match_rows", route="cuda",
                 source="lidar_odometry_demo_tpu_torch/kernels/match_rows.cu",
                 replaces="lidar_odometry_demo_tpu/ops/pallas/correspondence.py:119",
-                redesigned="PR 3", max_abs_err=max_err, ms=ms, call_ms=call_ms,
+                max_abs_err=max_err, ms=ms, call_ms=call_ms,
                 point_mode_ms=point_ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -458,10 +469,196 @@ def check_jtwj(rng, device) -> dict:
     return dict(name="jtwj_accumulate", route="cuda",
                 source="lidar_odometry_demo_tpu_torch/kernels/jtwj.cu",
                 replaces="lidar_odometry_demo_tpu/ops/pallas/jtwj.py:101",
-                redesigned="PR 3", max_abs_err=max_err, pose_max_abs_err=pose_err, ms=ms,
+                max_abs_err=max_err, pose_max_abs_err=pose_err, ms=ms,
                 call_ms=call_ms, plain_ms=plain_ms, hb_mode_ms=hb_ms,
                 hb_mode_plain_ms=hb_plain_ms, step_q1_ms=q1_ms, launch_floor_ms=floor_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_gathered_step(rng, device) -> tuple[dict, dict]:
+    """K2's split-step entry points against the launch sequence they
+    replace and against their plain versions on the card, on the parts of
+    N = 1, 2 and 4 fake ranks (a Q = 8192 correspondence set cut into N
+    slices of Q / N rows, each slice's H and b at the pose from
+    `jtwj_accumulate`), at B = 1 and at B = 8 with lane 3 inactive, for every
+    rank's slice: `gn_sum_step` bitwise the old sequence (the parts added in
+    rank order by torch, K2e on that one sum, `jtwj_accumulate` at its
+    pose: pose, step norm and the new part), K2e on the N parts bitwise K2e
+    on their torch sum, and at N = 1 K2e bitwise the fused step; the pose
+    within 1e-6 and the step norm within rtol 1e-5 of the plain versions,
+    and the new part, entry by entry, within 4 eps sqrt(Q / N) of its
+    terms' magnitudes (`abs_terms_sum`) of `jtwj_plain` at the kernel's
+    pose. CUDA event times of both entry points and their plain versions
+    beside their bounds. Returns the two kernels' `kernels` entries."""
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
+        GnWork, gn_epilogue, gn_epilogue_sum_plain, gn_step, gn_sum_step, gn_sum_step_plain,
+        jtwj_accumulate, jtwj_plain, sum_in_rank_order)
+    from lidar_odometry_demo_tpu_torch.ops.se3 import Pose, quat_to_matrix
+    from lidar_odometry_demo_tpu_torch.ops.voxel_map import Correspondence
+
+    cfg = OdometryConfig()
+    Q = 8192
+    rot = Rotation.from_euler("xyz", [0.02, -0.01, 0.3])
+
+    def step_inputs(lanes):
+        sl = rng.uniform(-20, 20, (*lanes, Q, 3)).astype(np.float32)
+        pn = rng.normal(0, 1, (*lanes, Q, 3)).astype(np.float32)
+        pn /= np.linalg.norm(pn, axis=-1, keepdims=True)
+        t = np.broadcast_to(np.array([1.5, -0.2, 0.1], np.float32), (*lanes, 3)).copy()
+        po = (sl @ rot.as_matrix().T.astype(np.float32) + t[..., None, :]
+              + rng.normal(0, 0.03, sl.shape)).astype(np.float32)
+        q = np.broadcast_to(rot.as_quat()[[3, 0, 1, 2]].astype(np.float32), (*lanes, 4)).copy()
+        cuda = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (sl, po, pn)]
+        valid = torch.from_numpy(rng.random((*lanes, Q)) < 0.8).to(device)
+        pose = Pose(torch.from_numpy(t).to(device), torch.from_numpy(q).to(device))
+        return Correspondence(*cuda, valid), pose, pose.t + 0.05
+
+    def rank_slice(corr, n, r):
+        """Fake rank r's rows of n (contiguous slices, as the sp path cuts)."""
+        rows = slice(r * Q // n, (r + 1) * Q // n)
+        return Correspondence(*(x[..., rows, :].contiguous() for x in corr[:3]),
+                              corr.valid[..., rows].contiguous())
+
+    def lane_bits(xs, on):
+        return [x[on] if on is not None else x for x in xs]
+
+    def part_plain(corr, pose):
+        """`jtwj_plain`'s part at `pose` as a record per lane."""
+        H, b = jtwj_plain(*corr, quat_to_matrix(pose.q), pose.t,
+                          huber_delta=cfg.icp_huber_delta)
+        return torch.cat([H.flatten(-2), b], -1)
+
+    max_err, part_err, part_share, timed = 0.0, 0.0, 0.0, {}
+    for lanes in ((), (8,)):
+        corr, pose, guess_t = step_inputs(lanes)
+        kw, on = {}, None
+        if lanes:
+            on = torch.arange(lanes[0], device=device) != 3
+            kw = dict(step_norm=torch.full(lanes, 0.5, device=device), active=on)
+        for n in (1, 2, 4):
+            slices = [rank_slice(corr, n, r) for r in range(n)]
+            parts = []
+            for part_corr in slices:
+                w = GnWork.empty(1, device, lanes)
+                jtwj_accumulate(part_corr, pose, huber_delta=cfg.icp_huber_delta, work=w,
+                                active=kw.get("active"))
+                parts.append(w.hb)
+            parts = torch.stack(parts)
+            total = sum_in_rank_order(parts)
+            # the launch sequence these entry points replace: the torch sum in
+            # rank order, K2e on that one sum, then H and b at its pose
+            old_work = GnWork.empty(1, device, lanes)
+            old_pose, old_norm = gn_epilogue(total[None], pose, guess_t, cfg, work=old_work, **kw)
+            e_pose, e_norm = gn_epilogue(parts, pose, guess_t, cfg,
+                                         work=GnWork.empty(1, device, lanes), **kw)
+            plain_pose, plain_norm = gn_epilogue_sum_plain(parts, pose, guess_t, cfg, **kw)
+            torch.cuda.synchronize()
+            if not _bitwise([e_pose.t, e_pose.q, e_norm], [old_pose.t, old_pose.q, old_norm]):
+                raise AssertionError(f"K2e at N = {n}, lanes {lanes}: not bitwise K2e on the "
+                                     f"torch rank-order sum of the parts")
+            errs = [(e_pose.t - plain_pose.t).abs().max().item(),
+                    (e_pose.q - plain_pose.q).abs().max().item()]
+            if max(errs) > 1e-6 or not torch.allclose(e_norm, plain_norm, rtol=1e-5, atol=1e-7):
+                raise AssertionError(f"K2e at N = {n}, lanes {lanes} vs its plain version: t, q "
+                                     f"{errs}, norm {(e_norm - plain_norm).abs().max().item()}")
+            max_err = max(max_err, *errs)
+            if n == 1:  # K2e on one epilogue-off part is the fused step
+                fp, fn, _, _ = gn_step(corr, pose, guess_t, cfg,
+                                       work=GnWork.empty(1, device, lanes), **kw)
+                torch.cuda.synchronize()
+                if not _bitwise([e_pose.t, e_pose.q, e_norm], [fp.t, fp.q, fn]):
+                    raise AssertionError(f"K2e at N = 1, lanes {lanes}: not bitwise the fused "
+                                         f"step")
+            for r, part_corr in enumerate(slices):
+                acc_work = GnWork.empty(1, device, lanes)
+                jtwj_accumulate(part_corr, old_pose, huber_delta=cfg.icp_huber_delta,
+                                work=acc_work, active=kw.get("active"))
+                work = GnWork.empty(1, device, lanes)
+                s_pose, s_norm = gn_sum_step(parts, part_corr, pose, guess_t, cfg, work=work,
+                                             **kw)
+                pp, pn_, _, _ = gn_sum_step_plain(parts, part_corr, pose, guess_t, cfg, **kw)
+                torch.cuda.synchronize()
+                if not (_bitwise([s_pose.t, s_pose.q, s_norm], [old_pose.t, old_pose.q, old_norm])
+                        and _bitwise(lane_bits([work.hb], on), lane_bits([acc_work.hb], on))):
+                    raise AssertionError(f"gn_sum_step at N = {n}, rank {r}, lanes {lanes}: not "
+                                         f"bitwise the rank-order sum, K2e and jtwj_accumulate")
+                errs = [(s_pose.t - pp.t).abs().max().item(), (s_pose.q - pp.q).abs().max().item()]
+                # the part against the plain accumulation at the kernel's own
+                # pose (the pose is held to the plain one above), each entry
+                # within a few float32 orders' rounding of its Q / N terms
+                got, want, scale = lane_bits(
+                    [work.hb, part_plain(part_corr, s_pose),
+                     abs_terms_sum(part_corr, s_pose, cfg.icp_huber_delta)], on)
+                part_bar = F32_EPS * (Q // n) ** 0.5 * scale
+                part_ok = bool(((got - want).abs() <= 4 * part_bar).all())
+                if (max(errs) > 1e-6 or not torch.allclose(s_norm, pn_, rtol=1e-5, atol=1e-7)
+                        or not part_ok):
+                    raise AssertionError(f"gn_sum_step at N = {n}, rank {r}, lanes {lanes} vs "
+                                         f"its plain version: t, q {errs}, H and b "
+                                         f"{(got - want).abs().max().item()}, "
+                                         f"{((got - want).abs() / part_bar).max().item():.3g} "
+                                         f"eps sqrt(Q / N) of their terms' magnitudes")
+                max_err = max(max_err, *errs)
+                part_err = max(part_err, (got - want).abs().max().item())
+                part_share = max(part_share, ((got - want).abs() / part_bar).max().item())
+            if lanes and not (
+                    torch.equal(e_pose.t[3], pose.t[3]) and torch.equal(s_pose.q[3], pose.q[3])
+                    and float(s_norm[3]) == 0.5 and float(e_norm[3]) == 0.5):
+                raise AssertionError(f"N = {n}: the inactive lane's pose or step norm moved")
+            # times at N = 2 (phase 10's split) and 4 (four cards), this
+            # rank's slice the last one's
+            if n > 1:
+                B = lanes[0] if lanes else 1
+                Qr = Q // n
+                work = GnWork.empty(1, device, lanes)
+                key = (n, B)
+                timed[key] = dict(
+                    sum_ms=time_ms(lambda: gn_sum_step(parts, part_corr, pose, guess_t, cfg,
+                                                       work=work, **kw), 200),
+                    sum_plain_ms=time_ms(lambda: gn_sum_step_plain(parts, part_corr, pose,
+                                                                   guess_t, cfg, **kw),
+                                         20 if not lanes else 3),
+                    e_ms=time_ms(lambda: gn_epilogue(parts, pose, guess_t, cfg, work=work, **kw),
+                                 200),
+                    e_plain_ms=time_ms(lambda: gn_epilogue_sum_plain(parts, pose, guess_t, cfg,
+                                                                     **kw),
+                                       20 if not lanes else 3),
+                    # gn_sum_step: the rank's rows (37 B each), the parts, the
+                    # pose and guess read; the new pose and part written; ~100
+                    # flops a row, ~500 for the epilogue and 27 (N - 1) adds
+                    sum_bound=bound_ms(B * (Qr * 37 + n * 168 + 40 + 32 + 168),
+                                       B * (100 * Qr + 500 + 27 * (n - 1))),
+                    # K2e: the parts, the pose and guess read, the pose written
+                    e_bound=bound_ms(B * (n * 168 + 40 + 32), B * (500 + 27 * (n - 1))))
+    gn_epilogue.launches = gn_sum_step.launches = 0
+    for (n, B), t in sorted(timed.items()):
+        log(f"kernel gn_sum_step (K2, split step) at N = {n}, B = {B}, Q = {Q // n} per rank: "
+            f"{t['sum_ms']:.4f} ms, plain {t['sum_plain_ms']:.4f} ms, bound "
+            f"{t['sum_bound'][0]:.6f} ms ({t['sum_bound'][1]}); K2e {t['e_ms']:.4f} ms, plain "
+            f"{t['e_plain_ms']:.4f} ms, bound {t['e_bound'][0]:.8f} ms ({t['e_bound'][1]})")
+    log(f"kernels gn_sum_step and K2e (gn_epilogue) at N = 1, 2, 4 and B = 1, 8 (lane 3 "
+        f"inactive): bitwise the rank-order sum, K2e and jtwj_accumulate they replace (K2e at "
+        f"N = 1 bitwise the fused step); pose {max_err:.3g} from the plain versions, part "
+        f"{part_err:.3g} ({part_share:.3g} eps sqrt(Q / N) of its terms' magnitudes, bar 4) "
+        f"from the plain accumulation at the kernel's pose")
+    main, b8, n4 = timed[(2, 1)], timed[(2, 8)], timed[(4, 1)]
+    common = dict(route="cuda", source="lidar_odometry_demo_tpu_torch/kernels/jtwj.cu",
+                  replaces="lidar_odometry_demo_tpu/ops/pallas/jtwj.py:101", library_ms=None)
+    summed = dict(name="gn_sum_step", **common, max_abs_err=max(max_err, part_err),
+                  ms=main["sum_ms"], plain_ms=main["sum_plain_ms"], bound_ms=main["sum_bound"][0],
+                  bound_by=main["sum_bound"][1], ms_b8=b8["sum_ms"],
+                  plain_ms_b8=b8["sum_plain_ms"], bound_ms_b8=b8["sum_bound"][0],
+                  ms_n4=n4["sum_ms"], bound_ms_n4=n4["sum_bound"][0])
+    epilogue = dict(name="gn_epilogue", **common, max_abs_err=max_err, ms=main["e_ms"],
+                    plain_ms=main["e_plain_ms"], bound_ms=main["e_bound"][0],
+                    bound_by=main["e_bound"][1], ms_b8=b8["e_ms"], plain_ms_b8=b8["e_plain_ms"],
+                    bound_ms_b8=b8["e_bound"][0], ms_n4=n4["e_ms"],
+                    bound_ms_n4=n4["e_bound"][0])
+    return summed, epilogue
 
 
 # --------------------------------------------------------------------------
@@ -833,7 +1030,7 @@ def check_search(device, main_lookups: dict) -> dict:
     head = timed[0]  # the neighbourhood lookup: the main path's mode
     return dict(name="search_sorted", route="cuda",
                 source="lidar_odometry_demo_tpu_torch/kernels/search.cu",
-                replaces="scripts/pallas_search_exp.py:39", redesigned="PR 4", max_abs_err=0.0,
+                replaces="scripts/pallas_search_exp.py:39", max_abs_err=0.0,
                 ms=head["ms"], call_ms=head["call_ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
                 present_slices=present, launch_floor_ms=floor_ms, modes=timed)
@@ -1055,6 +1252,28 @@ def fleet_calls(state, scan) -> dict:
     if set(calls) != {key for _, _, key in patched}:
         raise AssertionError(f"fleet step: recorded only {sorted(calls)}")
     return calls
+
+
+def abs_terms_sum(corr, pose, huber_delta: float):
+    """Per entry of a part's record (H row-major, then b) at `pose`, the sum
+    over the rows of its terms' magnitudes, sum |w J_a J_b| and sum
+    |w J_a r| (w >= 0): the scale of the float32 rounding of any order of
+    that sum. With a lane axis, per lane."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.ops.se3 import Pose, quat_to_matrix, rot_pts
+    from lidar_odometry_demo_tpu_torch.ops.voxel_map import Correspondence
+
+    if corr.source_local.dim() == 3:
+        return torch.stack([abs_terms_sum(Correspondence(*(x[i] for x in corr)),
+                                          Pose(pose.t[i], pose.q[i]), huber_delta)
+                            for i in range(corr.source_local.shape[0])])
+    rp = rot_pts(corr.source_local, quat_to_matrix(pose.q))
+    n = corr.plane_normal
+    r = ((rp + pose.t - corr.plane_origin) * n).sum(-1).abs()
+    w = torch.where(corr.valid, torch.clamp(huber_delta / r, max=1.0), 0.0)
+    J = torch.cat([torch.linalg.cross(rp, n), n], -1).abs()
+    return torch.cat([(J.T @ (J * w[:, None])).flatten(), (J * w[:, None]).T @ r])
 
 
 def _bitwise(a, b) -> bool:
@@ -1761,14 +1980,15 @@ MAIN_PATH_ATE = 0.00936  # phase 3's aligned ATE on the bench drive, which sp mu
 ATE_CEILING = 0.03       # every path's aligned ATE bound
 # sp's trajectory against phase 3's, m: the JAX package's own bar for an
 # sp-sharded sequence against its single run (tests/test_parallel.py:147).
-# Summing H and b over the ranks reorders float32 sums, so the two drift
-# apart by ulps from scan 1 on and a correspondence at a gate's edge flips
+# The ranks add H and b in rank order where the single path adds them in
+# one sum, so the two drift apart by ulps from scan 1 on and a
+# correspondence at a gate's edge flips
 SP_FROM_MAIN_M = 1e-4
 # Every scan's matches under sp against phase 3's, as a share of the
 # drive's largest count (6,437 on the bench drive): the drift above moves
-# correspondences across a gate, by up to 16 at two ranks and up to 64 with
-# four parts added pairwise (the one-process witnesses, one H100); a rank
-# whose part of a sum is lost or counted twice moves them by a quarter
+# correspondences across a gate, by up to 16 at two ranks and 10 at four
+# (the one-process witnesses, one H100); a rank whose part of a sum is
+# lost or counted twice moves them by a quarter
 SP_MATCHES_FROM_MAIN = 0.02
 SPATIAL_FROM_MAIN_M = 1e-3  # spatial's trajectory against phase 3's, m
 EMPTY_KEY = 0x7FFFFFFF      # kernels/search.py: an empty slot of a voxel map
@@ -1777,60 +1997,47 @@ EMPTY_KEY = 0x7FFFFFFF      # kernels/search.py: an empty slot of a voxel map
 class ThreadGroup:
     """Rank `rank` of a group of n threads of one process, standing in for
     an sp group of n ranks (the interface ops/icp.py and
-    pipeline/odometry.py use: size, rank, psum). `psum` adds the n threads'
-    tensors on the device in the group's `order`: "rank", x_0 + x_1 + ...,
-    which is what an all-reduce over two ranks gives (float addition
-    commutes), so at n = 2 it is the one-process witness of the split sums;
-    or "pairwise", the tree (x_0 + x_1) + (x_2 + x_3) + ..., a second
-    association of the same operands. The threads share one stream, so the
-    barriers order the reads and writes on the device."""
-
-    ORDERS = ("rank", "pairwise")
+    pipeline/odometry.py use: size, rank, gather_parts). `gather_parts`
+    stacks the n threads' tensors in rank order on the device, as the
+    group's all-gather does, and the sp path adds them in rank order
+    itself, so the threads take the ranks' sums bit for bit: the
+    one-process witness of the split sums. The threads share one stream, so
+    the barriers order the reads and writes on the device."""
 
     def __init__(self, rank: int, shared: dict):
         self.rank, self.size, self.shared = rank, shared["n"], shared
 
     @staticmethod
-    def shared(n: int, order: str = "rank") -> dict:
+    def shared(n: int) -> dict:
         import threading
 
-        if order not in ThreadGroup.ORDERS:
-            raise ValueError(f"order {order!r} is not one of {ThreadGroup.ORDERS}")
-        return {"n": n, "order": order, "barrier": threading.Barrier(n, timeout=120),
-                "slots": [None] * n}
+        return {"n": n, "barrier": threading.Barrier(n, timeout=120), "slots": [None] * n}
 
-    def psum(self, x, kind: str = "psum"):
+    def gather_parts(self, x, kind: str = "gather"):
+        import torch
+
         sh = self.shared
         sh["slots"][self.rank] = x
         sh["barrier"].wait()  # every rank's x is in
-        terms = list(sh["slots"])
-        if sh["order"] == "rank":
-            total = terms[0]
-            for y in terms[1:]:
-                total = total + y
-        else:
-            while len(terms) > 1:
-                terms = [terms[i] + terms[i + 1] if i + 1 < len(terms) else terms[i]
-                         for i in range(0, len(terms), 2)]
-            total = terms[0]
+        parts = torch.stack(sh["slots"])
         sh["barrier"].wait()  # every rank has queued its reads of the slots
-        return x.copy_(total)
+        return parts
 
 
-def sp_witness(cfg, scans, device, n: int = 2, order: str = "rank") -> dict:
-    """The sp path with its group's sums taken in one process: n threads
-    each drive `make_process_scan(cfg, sp_group=...)` over `scans` from a
-    fresh state with a ThreadGroup, so each Gauss-Newton step is split into
-    the same parts (jtwj_accumulate on each rank's slice of the matching
-    points), whose H and b, matches and cost sums are added in `order`
-    (ThreadGroup) before the epilogue. Returns rank 0's poses, iterations
-    and matches (numpy); raises if the threads disagree."""
+def sp_witness(cfg, scans, device, n: int = 2) -> dict:
+    """The sp path with its group's gathers taken in one process: n
+    threads each drive `make_process_scan(cfg, sp_group=...)` over `scans`
+    from a fresh state with a ThreadGroup, so each Gauss-Newton step is
+    split into the same parts (K2 on each rank's slice of the matching
+    points), which the path adds in rank order as the ranks do. Returns
+    rank 0's poses, iterations and matches (numpy); raises if the threads
+    disagree."""
     import threading
     import traceback
 
     from lidar_odometry_demo_tpu_torch.pipeline import odometry
 
-    shared = ThreadGroup.shared(n, order)
+    shared = ThreadGroup.shared(n)
     outs, errors = [None] * n, []
 
     def drive(rank):
@@ -1865,89 +2072,10 @@ def sp_witness(cfg, scans, device, n: int = 2, order: str = "rank") -> dict:
 
 def sharded_counters() -> dict:
     """The launch-counted kernel wrappers of the sharded paths: phase 3's,
-    plus K2's epilogue entry point (the split step's second part)."""
-    from lidar_odometry_demo_tpu_torch.kernels.jtwj import gn_epilogue
+    plus K2's split-step entry points (gn_sum_step and K2e)."""
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import gn_epilogue, gn_sum_step
 
-    return counters() | {"gn_epilogue": gn_epilogue}
-
-
-def check_gn_epilogue(rng, device) -> dict:
-    """K2's epilogue entry point against its plain version on the card, on
-    the H and b of an epilogue-off launch at the main path's shapes (Q =
-    8192): the split step (accumulate, then the epilogue) bitwise the fused
-    step's pose and step norm, and the plain epilogue's pose within 1e-6;
-    at B = 8 with lane 3 inactive likewise, lane by lane. CUDA event times
-    of the kernel and its plain version."""
-    import torch
-    from scipy.spatial.transform import Rotation
-
-    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
-    from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
-        GnWork, gn_epilogue, gn_epilogue_plain, gn_step, jtwj_accumulate)
-    from lidar_odometry_demo_tpu_torch.ops.se3 import Pose
-    from lidar_odometry_demo_tpu_torch.ops.voxel_map import Correspondence
-
-    cfg = OdometryConfig()
-    if gn_epilogue.launches:
-        raise AssertionError(f"K2's epilogue entry point ran {gn_epilogue.launches} times on "
-                             f"the single-process paths (phases 1-9), which never split a step")
-
-    def step_inputs(lanes):
-        Q = 8192
-        sl = rng.uniform(-20, 20, (*lanes, Q, 3)).astype(np.float32)
-        pn = rng.normal(0, 1, (*lanes, Q, 3)).astype(np.float32)
-        pn /= np.linalg.norm(pn, axis=-1, keepdims=True)
-        rot = Rotation.from_euler("xyz", [0.02, -0.01, 0.3])
-        t = np.broadcast_to(np.array([1.5, -0.2, 0.1], np.float32), (*lanes, 3)).copy()
-        po = (sl @ rot.as_matrix().T.astype(np.float32) + t[..., None, :]
-              + rng.normal(0, 0.03, sl.shape)).astype(np.float32)
-        q = np.broadcast_to(rot.as_quat()[[3, 0, 1, 2]].astype(np.float32), (*lanes, 4)).copy()
-        cuda = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (sl, po, pn)]
-        valid = torch.from_numpy(rng.random((*lanes, Q)) < 0.8).to(device)
-        pose = Pose(torch.from_numpy(t).to(device), torch.from_numpy(q).to(device))
-        return Correspondence(*cuda, valid), pose, pose.t + 0.05
-
-    max_err = 0.0
-    for lanes in ((), (8,)):
-        corr, pose, guess_t = step_inputs(lanes)
-        kw = {}
-        if lanes:
-            kw = dict(step_norm=torch.full(lanes, 0.5, device=device),
-                      active=torch.arange(lanes[0], device=device) != 3)
-        fused_work, work = GnWork.empty(1, device, lanes), GnWork.empty(1, device, lanes)
-        fp, fn, _, _ = gn_step(corr, pose, guess_t, cfg, work=fused_work, **kw)
-        H, b = jtwj_accumulate(corr, pose, huber_delta=cfg.icp_huber_delta, work=work,
-                               active=kw.get("active"))
-        sp, sn = gn_epilogue(H, b, pose, guess_t, cfg, work=work, **kw)
-        pp, pn = gn_epilogue_plain(H, b, pose, guess_t, cfg, **kw)
-        torch.cuda.synchronize()
-        if not (torch.equal(sp.t, fp.t) and torch.equal(sp.q, fp.q) and torch.equal(sn, fn)):
-            raise AssertionError(f"K2 split step at lanes {lanes}: not bitwise the fused step")
-        errs = [(sp.t - pp.t).abs().max().item(), (sp.q - pp.q).abs().max().item()]
-        if max(errs) > 1e-6 or not torch.allclose(sn, pn, rtol=1e-5, atol=1e-7):
-            raise AssertionError(f"K2 epilogue at lanes {lanes} vs its plain version: t, q "
-                                 f"{errs}, norm {(sn - pn).abs().max().item()}")
-        max_err = max(max_err, *errs)
-        if lanes:
-            ms8 = time_ms(lambda: gn_epilogue(H, b, pose, guess_t, cfg, work=work, **kw), 200)
-            plain8 = time_ms(lambda: gn_epilogue_plain(H, b, pose, guess_t, cfg, **kw), 5)
-        else:
-            ms = time_ms(lambda: gn_epilogue(H, b, pose, guess_t, cfg, work=work), 200)
-            plain = time_ms(lambda: gn_epilogue_plain(H, b, pose, guess_t, cfg), 20)
-    # H (36), b (6), the pose (7), the guess (3) read, the pose and norm (8)
-    # written; ~500 flops for the prior, the damping, the Cholesky, the two
-    # substitutions and the pose update
-    b_ms, b_by = bound_ms(60 * 4, 500)
-    log(f"kernel gn_epilogue (K2's epilogue entry point): split step bitwise the fused step "
-        f"at B = 1 and B = 8 (lane 3 inactive); max_abs_err vs plain {max_err:.3g}; kernel "
-        f"{ms:.4f} ms (B = 8: {ms8:.4f}), plain {plain:.4f} ms (B = 8: {plain8:.4f}); bound "
-        f"{b_ms:.8f} ms ({b_by})")
-    gn_epilogue.launches = 0
-    return dict(name="gn_epilogue", route="cuda",
-                source="lidar_odometry_demo_tpu_torch/kernels/jtwj.cu",
-                replaces="lidar_odometry_demo_tpu/ops/pallas/jtwj.py:101",
-                redesigned=None, max_abs_err=max_err, ms=ms, plain_ms=plain, ms_b8=ms8,
-                plain_ms_b8=plain8, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return counters() | {"gn_sum_step": gn_sum_step, "gn_epilogue": gn_epilogue}
 
 
 def split_shard(m, n: int, rank: int):
@@ -2297,7 +2425,8 @@ def _per_scan(r: dict, n_scans: int) -> str:
     launches = " / ".join(f"{k} {v / n_scans:.2f}" for k, v in r["launches"].items())
     return (f"{r['ms_per_scan']:.3f} ms/scan by CUDA events ({r['host_ms_per_scan']:.3f} host, "
             f"{r['cpu_ms_per_scan']:.3f} process CPU); "
-            f"collectives {st['collectives'] / n_scans:.2f}/scan, host "
+            f"collectives {st['collectives'] / n_scans:.2f}/scan (gathers "
+            f"{st['gathers'] / n_scans:.2f}), host "
             f"{st['collective_host_ms'] / n_scans:.3f} ms/scan in the calls after "
             f"{st['wait_ms'] / n_scans:.3f} ms/scan waiting for queued work, device "
             f"{st['collective_device_ms'] / n_scans:.3f} ms/scan; halo exchanges "
@@ -2344,18 +2473,22 @@ def _ranks_equal(label: str, rs: list, fields) -> None:
 
 def _split_schedule(label: str, rs: list, n_scans: int) -> None:
     """Every rank launched the split step's schedule: per ICP round (one
-    all-reduce of matches and cost) one K1, and per inner iteration one
-    jtwj_accumulate and one gn_epilogue; two lookups per scan."""
+    gather of matches and cost) one K1, one jtwj_accumulate, a gn_sum_step
+    per later inner iteration and one K2e, with a gather of H and b per
+    inner iteration; two lookups per scan."""
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig
 
     inner = OdometryConfig().icp_inner_iterations
-    rounds = rs[0]["stats"]["by_kind"].get("matches,cost", 0)
-    want = {"match_rows": rounds, "jtwj_accumulate": inner * rounds,
-            "gn_epilogue": inner * rounds, "search_sorted": 2 * n_scans}
     for i, r in enumerate(rs):
-        if r["launches"] != want:
+        by_kind = r["stats"]["by_kind"]
+        rounds = by_kind.get("matches,cost", 0)
+        want = {"match_rows": rounds, "jtwj_accumulate": rounds,
+                "gn_sum_step": (inner - 1) * rounds, "gn_epilogue": rounds,
+                "search_sorted": 2 * n_scans}
+        if r["launches"] != want or by_kind.get("H,b", 0) != inner * rounds:
             raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the split "
-                                 f"schedule {want}")
+                                 f"schedule {want}, or {by_kind.get('H,b', 0)} gathers of H and "
+                                 f"b for {rounds} rounds")
 
 
 def _drift(label: str, a: dict, ref: dict) -> tuple[float, np.ndarray, float]:
@@ -2377,42 +2510,44 @@ def _drift(label: str, a: dict, ref: dict) -> tuple[float, np.ndarray, float]:
     return float(per_scan.max()), d_matches, float(ate_rmse(a["t"], ref["gt_rel"], align=True))
 
 
-def check_sp_ranks(label: str, rs: list, ref: dict, witnesses: dict, bitwise: bool = True,
-                   bar: float = SP_FROM_MAIN_M) -> dict:
+def check_sp_ranks(label: str, rs: list, ref: dict, witness: dict) -> dict:
     """An sp mode's ranks (_sharded_drive results) against phase 3 (`ref`,
-    path_reference) and the one-process witnesses of the split sums
-    (`witnesses`, order -> sp_witness): the ranks bitwise each other; with
-    `bitwise` (two ranks per sum, so no order of its own) bitwise the
-    rank-order witness; within `bar` m of phase 3, every scan's matches
-    within SP_MATCHES_FROM_MAIN of the drive's largest count of phase 3's,
-    iterations equal, ATE within
-    1e-4 m of MAIN_PATH_ATE, no scan diverged, the split launch schedule.
-    Returns the numbers."""
+    path_reference) and the one-process witness of the split sums
+    (`witness`, sp_witness at the same group size): the ranks bitwise each
+    other and bitwise the witness (every sum is added in rank order, so the
+    backend adds nothing of its own); within SP_FROM_MAIN_M of phase 3,
+    every scan's matches within SP_MATCHES_FROM_MAIN of the drive's largest
+    count of phase 3's, iterations equal, ATE within 1e-4 m of
+    MAIN_PATH_ATE, no scan diverged, the split launch schedule. Returns the
+    numbers."""
     a, n_scans = rs[0], len(ref["t"])
     _ranks_equal(label, rs, ("t", "q", "iters", "matches", "map_voxels"))
     for i, r in enumerate(rs):
         log(f"{label}, rank {i} ({r.get('device', '')}): {_per_scan(r, n_scans)}")
     d_main, d_matches, ate = _drift(label, a, ref)
     rounds = a["stats"]["by_kind"].get("matches,cost", 0)
-    from_witness = {o: max(float(np.abs(a[f] - w[f]).max()) for f in ("t", "q"))
-                    for o, w in witnesses.items()}
-    witness_main = {o: float(np.abs(w["t"] - ref["t"]).max()) for o, w in witnesses.items()}
-    same = all(np.array_equal(a[f], witnesses["rank"][f]) for f in witnesses["rank"])
+    from_witness = max(float(np.abs(a[f] - witness[f]).max()) for f in ("t", "q"))
+    witness_main = float(np.abs(witness["t"] - ref["t"]).max())
+    same = all(np.array_equal(a[f], witness[f]) for f in witness)
     worst_matches = int(np.abs(d_matches).max())
     matches_bar = SP_MATCHES_FROM_MAIN * int(ref["matches"].max())
     iters_equal = np.array_equal(a["iters"], ref["iters"])
-    log(f"{label}: ranks bitwise equal; {d_main:.3g} m from phase 3 (bar {bar}); from the "
-        f"one-process witnesses of the split sums (t, q) {from_witness} (bitwise the rank-order "
-        f"one: {same}; the witnesses from phase 3: {witness_main}); matches at most "
+    log(f"{label}: ranks bitwise equal; {d_main:.3g} m from phase 3 (bar {SP_FROM_MAIN_M}); "
+        f"bitwise the one-process witness of the split sums: {same} ((t, q) {from_witness:.3g} "
+        f"apart; the witness {witness_main:.3g} m from phase 3); matches at most "
         f"{worst_matches} from phase 3's (bar {matches_bar:.0f}); iterations equal "
         f"{iters_equal}; ATE {ate:.5f} m; {rounds} ICP rounds (the first scan's included: ICP "
-        f"always runs under a group)")
-    if bitwise and not same:
+        f"always runs under a group); per rank and scan "
+        f"{a['launches']['gn_epilogue'] / n_scans:.2f} K2e and "
+        f"{a['launches']['gn_sum_step'] / n_scans:.2f} gn_sum_step launches, "
+        f"{a['stats']['gathers'] / n_scans:.2f} gathers")
+    if not same:
         raise AssertionError(f"{label}: not bitwise the one-process witness of the split sums: "
                              f"something other than the sum order moves the ranks")
-    if d_main > bar or not iters_equal or worst_matches > matches_bar:
-        raise AssertionError(f"{label}: {d_main} m from phase 3 (bar {bar}), iterations differ, "
-                             f"or matches off by {worst_matches} (bar {matches_bar:.0f})")
+    if d_main > SP_FROM_MAIN_M or not iters_equal or worst_matches > matches_bar:
+        raise AssertionError(f"{label}: {d_main} m from phase 3 (bar {SP_FROM_MAIN_M}), "
+                             f"iterations differ, or matches off by {worst_matches} (bar "
+                             f"{matches_bar:.0f})")
     if abs(ate - MAIN_PATH_ATE) > 1e-4 or a["diverged"].any():
         raise AssertionError(f"{label}: ATE {ate} not within 1e-4 m of {MAIN_PATH_ATE}, or a "
                              f"scan diverged")
@@ -2516,7 +2651,8 @@ def check_dp_ranks(label: str, rs: list, fleet: dict) -> dict:
     log(f"{label}: every lane bitwise phase 7's (poses, iterations, final keys, counts, origin)")
     for i, r in enumerate(rs):
         rounds = int(r["iters"].max(axis=1).sum())
-        want = {"match_rows": rounds, "jtwj_accumulate": inner * rounds, "gn_epilogue": 0,
+        want = {"match_rows": rounds, "jtwj_accumulate": inner * rounds, "gn_sum_step": 0,
+                "gn_epilogue": 0,
                 "search_sorted": int(np.sum(r["iters"].max(axis=1) > 0)) + n_scans}
         if r["launches"] != want:
             raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the batched "
@@ -2544,10 +2680,15 @@ def run_sharded(bench: dict, main_diags: list, main_odo, fleet: dict, refine: di
     from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
     from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
 
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import gn_epilogue, gn_sum_step
+
     cfg = OdometryConfig()
     if not all(_build._lib_path(name).exists() for name in _build.SOURCES):
         raise AssertionError("phase 10: the kernels are not built before the ranks start")
-    epilogue = check_gn_epilogue(np.random.default_rng(7), device)
+    if gn_epilogue.launches or gn_sum_step.launches:
+        raise AssertionError(f"K2's split-step entry points ran {gn_sum_step.launches} / "
+                             f"{gn_epilogue.launches} times on the single-process paths "
+                             f"(phases 3-9), which never split a step")
 
     # the composite view's search on the card, at N = 2 (C rows) and N = 4
     # (3C/4 rows, no power of two), on the main path's final map at one more
@@ -2592,12 +2733,10 @@ def run_sharded(bench: dict, main_diags: list, main_odo, fleet: dict, refine: di
 
     t0 = time.perf_counter()
     witness = sp_witness(cfg, bench["scans"], device, SHARDED_RANKS)
-    log(f"sharded: the sp witness (two threads of this process, the split sums added on the "
-        f"card in rank order) ran the 40 scans in {time.perf_counter() - t0:.1f} s")
+    log(f"sharded: the sp witness (two threads of this process, their parts gathered and "
+        f"added in rank order) ran the 40 scans in {time.perf_counter() - t0:.1f} s")
     ref = path_reference(bench, main_diags, main_odo)
-    results = {"kernel": epilogue,
-               "sp": check_sp_ranks("sharded sp", [r["sp"] for r in ranks], ref,
-                                    {"rank": witness}),
+    results = {"sp": check_sp_ranks("sharded sp", [r["sp"] for r in ranks], ref, witness),
                "spatial": check_spatial_ranks("sharded spatial", [r["spatial"] for r in ranks],
                                               ref, lookup[4].cpu().numpy()),
                "dp": check_dp_ranks("sharded dp", [r["dp"] for r in ranks], fleet)}
@@ -2658,6 +2797,7 @@ def main() -> int:
 
     rng = np.random.default_rng(1234)
     kernels = [check_match_rows(rng, device), check_jtwj(rng, device)]
+    split_kernels = check_gathered_step(np.random.default_rng(7), device)
     bench = bench_drive(device)
     odo, launches, main_diags, single_ms = run_main_path(bench, device)
     kernels.append(check_search(device, path_lookups(odo, bench["scans"][-1])))
@@ -2672,7 +2812,6 @@ def main() -> int:
     run_live_cli(bench)
     refine = run_refine(main_diags, device)
     sharded = run_sharded(bench, main_diags, odo, fleet, refine, device)
-    epilogue = sharded["kernel"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_reference_parity"] = parity[k["name"]]
@@ -2683,13 +2822,14 @@ def main() -> int:
         k["launches_refine"] = refine["launches"][k["name"]]
         k.update(fleet_numbers[k["name"]])
         k["kernel_ms"] = k["ms"]
-    for k in kernels + [epilogue]:
+    for k in kernels + list(split_kernels):
         for mode in ("sp", "spatial", "dp"):
             k[f"launches_sharded_{mode}"] = sharded["launches"][mode][k["name"]]
-    # the epilogue entry point runs only on the split step's paths: its
-    # launches are the sp path's (per rank), and 0 on every phase 1-9 path
-    epilogue["launches"] = epilogue["launches_sharded_sp"]
-    kernels.append(epilogue)
+    # the split step's entry points run only on the sharded paths: their
+    # launches are the sp path's (per rank), and 0 on every phase 3-9 path
+    for k in split_kernels:
+        k["launches"] = k["launches_sharded_sp"]
+    kernels += split_kernels
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2698,5 +2838,29 @@ def main() -> int:
     return 0
 
 
+def stop_helper_processes() -> None:
+    """Stop every process this script started that is still running, then
+    multiprocessing's resource tracker (started by the first spawned
+    process), and reap them all. Left to the interpreter's exit, the
+    tracker outlives this process: it exits only when it reads the end of
+    its pipe, after this process has gone, and waits unreaped until then."""
+    import gc
+    import multiprocessing
+    from multiprocessing import resource_tracker
+
+    for child in multiprocessing.active_children():
+        child.terminate()
+        child.join(10.0)
+        if child.is_alive():
+            child.kill()
+            child.join(10.0)
+    gc.collect()  # finalize (unlink) the semaphores no one holds before the tracker goes
+    resource_tracker._resource_tracker._stop()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_helper_processes()
+    sys.exit(code)

@@ -1,6 +1,9 @@
 // Kernel K2: one whole Gauss-Newton step of the point-to-plane ICP in one
 // launch, or (epilogue off) the robust normal equations H = J^T W J,
-// b = J^T W r alone, at the same pose.
+// b = J^T W r alone, at the same pose; and, for a step split over a group
+// of ranks, the sum of the ranks' H and b in rank order with the epilogue
+// on it, in front of the next step's accumulation (gn_sum_step) or alone
+// (K2e, gn_epilogue_kernel).
 //
 // Replaces the TPU kernel lidar_odometry_demo_tpu/ops/pallas/jtwj.py
 // (_jtwj_kernel / jtwj_accumulate) and, in step mode, the scalar work the
@@ -40,7 +43,8 @@
 // its small-angle branch, quat_mul, quat_normalize) and |delta|. Every
 // multiply, add and divide there is a non-contracted IEEE operation in the
 // plain version's order (sinf / cosf / sqrtf, not the fast intrinsics).
-// H and b are written as the sums, before the prior and the damping.
+// H and b are written as the sums, before the prior and the damping, into
+// each lane's 42-float record (H row-major, then b).
 //
 // Lanes: B independent systems in one launch, one 16-block cluster each
 // (grid 16 B, cluster dims (16, 1, 1)); cluster c serves lane c. Every input
@@ -51,13 +55,29 @@
 // any barrier (H and b are not written), so the ICP loop needs no tensor op
 // between its steps to hold a finished lane still.
 //
-// Split step (a group of ranks, each holding part of the correspondences):
-// the sum over the ranks must come between the accumulation and the solve.
-// The step then is this kernel with the epilogue off (H and b at the pose,
-// R derived as in step mode, so a group of one gives the fused step's bits),
-// the caller's all-reduce of H and b, and the second entry point,
-// gn_epilogue_kernel: one thread per lane runs the same step_epilogue on the
-// summed H and b.
+// Split step (a group of N ranks, each holding part of the correspondences):
+// the sum over the ranks must come between the accumulation and the solve,
+// and it is taken here, in rank order, so that every rank and every backend
+// gives the same bits (an all-reduce adds in an order of its own). A round of
+// n steps is: step 0 this kernel with the epilogue off (this rank's H and b,
+// its "part", at the round's pose; R derived as in step mode, so a group of
+// one gives the fused step's bits); the caller gathers the N ranks' parts,
+// (N, B, 42); steps 1 .. n-1 gn_sum_step: block rank 0 adds the N parts of
+// the step before in rank order (27 threads, one sum each), thread 0 runs
+// step_epilogue on them at that step's input pose and writes the new pose,
+// and publishes it in its shared memory behind a cluster barrier
+// (release / acquire); every block reads it through distributed shared
+// memory and the cluster accumulates this rank's part at the new pose, the
+// next gather's input. After the last gather gn_epilogue_kernel (K2e), one
+// warp per lane, adds the parts in the same way and runs the same
+// step_epilogue. Since the sums and the epilogue are the same device functions,
+// gn_sum_step's pose is bitwise K2e's on the same parts, and its part is
+// bitwise the epilogue-off launch's at that pose.
+//
+// Bounds of the split step's entry points on the card (3.35 TB/s): gn_sum_step
+// moves K2's bytes (~0.3 MB at Q = 8192) and the N B 168 bytes of the parts,
+// ~0.09 us; K2e the N B 168 bytes of the parts, ~2e-4 us at N = 4, B = 1;
+// both sit on the launch floor, ~2 us, as the fused step does.
 
 #include <atomic>
 #include <cooperative_groups.h>
@@ -71,6 +91,7 @@ constexpr int kBlocks = 16;  // one cluster (a non-portable size on Hopper)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 27;
+constexpr int kRecord = 42;  // a lane's H (6 x 6, row-major) and b (6)
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -94,6 +115,42 @@ __device__ void quat_to_matrix(const float* q, float* R) {
   R[6] = mul(2.f, sub(xz, wy));
   R[7] = mul(2.f, add(yz, wx));
   R[8] = sub(1.f, mul(2.f, add(xx, yy)));
+}
+
+// Where sum j of the 27 (the upper triangle of H row by row, then b) lies
+// in a lane's record: H[a][c] at a * 6 + c, b[i] at 36 + i.
+__device__ __forceinline__ int record_at(int j, int* mirror) {
+  if (j >= 21) {
+    *mirror = -1;
+    return 36 + (j - 21);
+  }
+  int a = 0, rem = j;  // j -> (a, c) of the row-major upper triangle
+  while (rem >= 6 - a) {
+    rem -= 6 - a;
+    ++a;
+  }
+  const int c = a + rem;
+  *mirror = c * 6 + a;
+  return a * 6 + c;
+}
+
+// Sum j written into a lane's record (H's two triangles alike).
+__device__ __forceinline__ void store_sum(float* record, int j, float s) {
+  int mirror;
+  record[record_at(j, &mirror)] = s;
+  if (mirror >= 0) record[mirror] = s;
+}
+
+// Sum j of n parts (a lane's records, part_stride floats apart), added in
+// rank order: part 0 + part 1 + ... + part n-1.
+__device__ __forceinline__ float rank_order_sum(const float* parts, int n,
+                                                long long part_stride, int j) {
+  int mirror;
+  const int at = record_at(j, &mirror);
+  float s = parts[at];
+#pragma unroll 4
+  for (int r = 1; r < n; ++r) s = add(s, parts[r * part_stride + at]);
+  return s;
 }
 
 // One halving of the butterfly reduce-scatter: a lane keeps the half of
@@ -256,20 +313,45 @@ __device__ void keep_pose(const float* t, const float* q, float norm, float* pos
   for (int i = 0; i < 8; ++i) pose_out[i] = keep[i];
 }
 
+// Threads 0-26 of a block: sum j of the lane's n parts (part_stride
+// floats apart) in rank order, into sums[j] (shared memory); then the block
+// synchronises.
+__device__ void sum_parts(const float* parts, int n, long long part_stride, float* sums) {
+  if (threadIdx.x < kSums) sums[threadIdx.x] = rank_order_sum(parts, n, part_stride, threadIdx.x);
+  __syncthreads();
+}
+
+// step_epilogue at a pose and guess read from device memory (one thread).
+__device__ void epilogue_at(const float* sums, const float* t_in, const float* q_in,
+                            const float* guess_t, float prior_w, float damping,
+                            float* pose_out) {
+  float t[3], q[4], g[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t[i] = t_in[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = q_in[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) g[i] = guess_t[i];
+  step_epilogue(sums, t, q, g, prior_w, damping, pose_out);
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 gn_step_kernel(const float* __restrict__ source_local,
                const float* __restrict__ plane_origin,
                const float* __restrict__ plane_normal,
-               const unsigned char* __restrict__ valid, const float* t_in, int t_stride, const float* q_in, int q_stride,
-               const float* norm_in, int norm_stride, const unsigned char* active,
-               const float* guess_t, int Q, float huber_delta, float prior_w,
-               float damping, float* __restrict__ H_out, float* __restrict__ b_out,
-               float* pose_out) {
+               const unsigned char* __restrict__ valid, const float* t_in, int t_stride,
+               const float* q_in, int q_stride, const float* norm_in, int norm_stride,
+               const unsigned char* active, const float* guess_t,
+               const float* __restrict__ parts, int n_parts, int Q, float huber_delta,
+               float prior_w, float damping, float* __restrict__ hb_out, float* pose_out) {
   __shared__ float warp_sums[kWarps][kSums];
   __shared__ float partials[kBlocks][kSums];  // rank 0's: every block's sums
   __shared__ float sums[kSums];
+  __shared__ float summed_pose[8];  // gn_sum_step: rank 0's new pose, read by every block
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
+  const bool sum_step = parts != nullptr;
+  const long long part_stride = (long long)(gridDim.x / kBlocks) * kRecord;
   {  // this cluster's lane: every pointer moves to its slice
     const long long lane = blockIdx.x / kBlocks;
     source_local += lane * 3 * Q;
@@ -279,8 +361,8 @@ gn_step_kernel(const float* __restrict__ source_local,
     t_in += lane * t_stride;
     q_in += lane * q_stride;
     if (guess_t != nullptr) guess_t += lane * 3;
-    H_out += lane * 36;
-    b_out += lane * 6;
+    if (parts != nullptr) parts += lane * kRecord;
+    hb_out += lane * kRecord;
     if (pose_out != nullptr) pose_out += lane * 8;
     if (active != nullptr && active[lane] == 0) {
       // a finished lane: its pose and step norm stay as they are (where a
@@ -291,13 +373,9 @@ gn_step_kernel(const float* __restrict__ source_local,
       return;
     }
   }
-  // the cluster barrier's first phase: once it completes every block has
-  // started, so distributed shared memory may be written; its wait comes
-  // after the rows, which hides its latency
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  // every input that does not depend on another, loaded at once: the pose,
-  // the guess and the thread's first two rows
+  // every input that does not depend on another, loaded at once: the
+  // thread's first two rows, then (gn_sum_step: while rank 0 solves) the pose
   const int stride = kBlocks * kThreads;
   const int i0 = (int)rank * kThreads + threadIdx.x;
   Row rows[2];
@@ -305,14 +383,45 @@ gn_step_kernel(const float* __restrict__ source_local,
   for (int u = 0; u < 2; ++u)
     if (i0 + u * stride < Q)
       rows[u] = load_row(source_local, plane_origin, plane_normal, valid, i0 + u * stride);
-  const float t0 = t_in[0], t1 = t_in[1], t2 = t_in[2];
-  float R[9], q[4], g[3] = {0.f, 0.f, 0.f};
+  float t0, t1, t2, q[4], g[3] = {0.f, 0.f, 0.f};
+  if (sum_step) {
+    // the prologue: rank 0 adds the N parts of the step before in rank
+    // order and runs its epilogue at that step's input pose; the new pose
+    // goes to pose_out and, behind a cluster barrier phase (which also
+    // tells every block that the others have started), to every block
+    if (rank == 0) {
+      sum_parts(parts, n_parts, part_stride, sums);
+      if (threadIdx.x == 0) {
+        epilogue_at(sums, t_in, q_in, guess_t, prior_w, damping, summed_pose);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) q[i] = q_in[i];
-  if (guess_t != nullptr) {
+        for (int i = 0; i < 8; ++i) pose_out[i] = summed_pose[i];
+      }
+      __syncthreads();
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    const float* p = cluster.map_shared_rank(summed_pose, 0);
+    t0 = p[0];
+    t1 = p[1];
+    t2 = p[2];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) g[i] = guess_t[i];
+    for (int i = 0; i < 4; ++i) q[i] = p[3 + i];
+  } else {
+    t0 = t_in[0];
+    t1 = t_in[1];
+    t2 = t_in[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = q_in[i];
+    if (guess_t != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) g[i] = guess_t[i];
+    }
   }
+  // the cluster barrier's next phase: once it completes every block has
+  // started, so distributed shared memory may be written; its wait comes
+  // after the rows, which hides its latency
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  float R[9];
   quat_to_matrix(q, R);
 
   float acc[kSums];
@@ -363,68 +472,38 @@ gn_step_kernel(const float* __restrict__ source_local,
 #pragma unroll
     for (int r = 0; r < kBlocks; ++r) s += partials[r][threadIdx.x];
     sums[threadIdx.x] = s;
+    store_sum(hb_out, threadIdx.x, s);
   }
   __syncthreads();
-
-  if (threadIdx.x < kSums) {
-    const int j = threadIdx.x;
-    if (j >= 21) {
-      b_out[j - 21] = sums[j];
-    } else {
-      int a = 0, rem = j;  // j -> (a, c) of the row-major upper triangle
-      while (rem >= 6 - a) {
-        rem -= 6 - a;
-        ++a;
-      }
-      const int c = a + rem;
-      H_out[a * 6 + c] = sums[j];
-      H_out[c * 6 + a] = sums[j];
-    }
-  }
-  if (pose_out != nullptr && threadIdx.x == 0) {
+  if (!sum_step && pose_out != nullptr && threadIdx.x == 0) {
     const float t[3] = {t0, t1, t2};
     step_epilogue(sums, t, q, g, prior_w, damping, pose_out);
   }
 }
 
-// The epilogue entry point: one thread per lane runs step_epilogue on a
-// given H (6, 6) and b (6,) (the sums over the ranks of an sp or spatial
-// group), reading the 27 sums from H's upper triangle and b in the order the
-// fused kernel stores them, so on the H and b of an epilogue-off launch it
-// gives the fused step's pose and step norm bit for bit.
+// K2e, the epilogue entry point: one warp per lane adds the N ranks' parts
+// (N, B, 42) in rank order (a thread per sum, as gn_sum_step's prologue
+// does) and its thread 0 runs step_epilogue on the sums; on the part of an
+// epilogue-off launch (N = 1) it gives the fused step's pose and step norm
+// bit for bit.
 __global__ void __launch_bounds__(32)
-gn_epilogue_kernel(const float* __restrict__ H, const float* __restrict__ b,
-                   const float* t_in, int t_stride, const float* q_in, int q_stride,
-                   const float* norm_in, int norm_stride, const unsigned char* active,
-                   const float* __restrict__ guess_t, int B, float prior_w, float damping,
+gn_epilogue_kernel(const float* __restrict__ parts, int n_parts, const float* t_in,
+                   int t_stride, const float* q_in, int q_stride, const float* norm_in,
+                   int norm_stride, const unsigned char* active,
+                   const float* __restrict__ guess_t, float prior_w, float damping,
                    float* pose_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  t_in += (long long)lane * t_stride;
-  q_in += (long long)lane * q_stride;
+  __shared__ float sums[kSums];
+  const long long lane = blockIdx.x;
+  t_in += lane * t_stride;
+  q_in += lane * q_stride;
   pose_out += lane * 8;
   if (active != nullptr && active[lane] == 0) {
-    keep_pose(t_in, q_in, norm_in[(long long)lane * norm_stride], pose_out);
+    if (threadIdx.x == 0) keep_pose(t_in, q_in, norm_in[lane * norm_stride], pose_out);
     return;
   }
-  H += lane * 36;
-  b += lane * 6;
-  guess_t += lane * 3;
-  float sums[kSums], t[3], q[4], g[3];
-  int j = 0;
-#pragma unroll
-  for (int a = 0; a < 6; ++a)
-#pragma unroll
-    for (int c = a; c < 6; ++c) sums[j++] = H[a * 6 + c];
-#pragma unroll
-  for (int a = 0; a < 6; ++a) sums[21 + a] = b[a];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) t[i] = t_in[i];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) q[i] = q_in[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) g[i] = guess_t[i];
-  step_epilogue(sums, t, q, g, prior_w, damping, pose_out);
+  sum_parts(parts + lane * kRecord, n_parts, (long long)gridDim.x * kRecord, sums);
+  if (threadIdx.x == 0)
+    epilogue_at(sums, t_in, q_in, guess_t + lane * 3, prior_w, damping, pose_out);
 }
 
 // The 16-block cluster is non-portable: the kernel opts in once per device,
@@ -447,25 +526,31 @@ cudaError_t opt_in_cluster() {
 
 }  // namespace
 
-// One launch for B lanes at the pose (t, q). Step mode: guess_t given,
-// pose_out the (B, 8) floats (t, q, |delta|) of the new poses; t and q (and
-// norm_in) are read at lane strides t_stride, q_stride (norm_stride), so a
-// pose may be a view of an earlier step's output; active (B,) and norm_in
-// may be nullptr (every lane active). Epilogue off (H and b alone, also
-// the first part of a step split around a sum over ranks): guess_t,
-// norm_in and pose_out nullptr, active as in step mode. H (B, 6, 6) and
-// b (B, 6) are written for every active lane, before the prior and the
-// damping.
+// One launch for B lanes, in one of three modes. t and q (and norm_in) are
+// read at lane strides t_stride, q_stride (norm_stride), so a pose may be a
+// view of an earlier step's output; active (B,) and norm_in may be nullptr
+// (every lane active). hb (B, 42): each lane's H and b at the pose the
+// launch accumulates at, before the prior and the damping, written for every
+// active lane.
+// - Step: guess_t given, parts nullptr; pose_out the (B, 8) floats (t, q,
+//   |delta|) of the new poses.
+// - Epilogue off (H and b alone, also step 0 of a split step): guess_t,
+//   parts, norm_in and pose_out nullptr, active as in step mode.
+// - gn_sum_step: parts (N, B, 42) given with guess_t: the sums of the N
+//   parts in rank order, the step at the pose (t, q) on them, its pose
+//   written to pose_out, then H and b at that new pose.
 // pose_out may alias t or q: every block reads the pose before it arrives at
-// the cluster barrier's second phase, and rank 0 writes pose_out only after
-// its wait on that phase (an inactive lane's one thread reads, then writes).
+// the cluster barrier's last phase, and rank 0 writes pose_out only after
+// its wait on that phase or, in gn_sum_step, after thread 0 has read t and
+// q (an inactive lane's one thread reads, then writes).
 extern "C" int gn_step_launch(const void* source_local, const void* plane_origin,
                               const void* plane_normal, const void* valid,
                               const void* t, int t_stride, const void* q,
                               int q_stride, const void* norm_in, int norm_stride,
-                              const void* active, const void* guess_t, int B, int Q,
-                              float huber_delta, float prior_w, float damping, void* H,
-                              void* b, void* pose_out, void* stream) {
+                              const void* active, const void* guess_t, const void* parts,
+                              int n_parts, int B, int Q, float huber_delta, float prior_w,
+                              float damping, void* hb, void* pose_out,
+                              void* stream) {
   if (B == 0) return 0;
   const cudaError_t opted_in = opt_in_cluster();
   if (opted_in != cudaSuccess) return (int)opted_in;
@@ -482,26 +567,25 @@ extern "C" int gn_step_launch(const void* source_local, const void* plane_origin
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, gn_step_kernel, (const float*)source_local, (const float*)plane_origin,
-      (const float*)plane_normal, (const unsigned char*)valid,
-      (const float*)t, t_stride, (const float*)q, q_stride, (const float*)norm_in,
-      norm_stride, (const unsigned char*)active, (const float*)guess_t, Q, huber_delta,
-      prior_w, damping, (float*)H, (float*)b, (float*)pose_out);
+      (const float*)plane_normal, (const unsigned char*)valid, (const float*)t, t_stride,
+      (const float*)q, q_stride, (const float*)norm_in, norm_stride,
+      (const unsigned char*)active, (const float*)guess_t, (const float*)parts, n_parts, Q,
+      huber_delta, prior_w, damping, (float*)hb, (float*)pose_out);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The epilogue alone for B lanes: H (B, 6, 6) and b (B, 6) contiguous (the
-// upper triangle of H is read), t, q (and norm_in) at lane strides as in
-// gn_step_launch, guess_t (B, 3), pose_out (B, 8); active and norm_in may be
-// nullptr (every lane active).
-extern "C" int gn_epilogue_launch(const void* H, const void* b, const void* t, int t_stride,
+// K2e for B lanes: parts (N, B, 42) contiguous, t, q (and norm_in) at lane
+// strides as in gn_step_launch, guess_t (B, 3), pose_out (B, 8); active
+// and norm_in may be nullptr (every lane active).
+extern "C" int gn_epilogue_launch(const void* parts, int n_parts, const void* t, int t_stride,
                                   const void* q, int q_stride, const void* norm_in,
                                   int norm_stride, const void* active, const void* guess_t,
                                   int B, float prior_w, float damping, void* pose_out,
                                   void* stream) {
   if (B == 0) return 0;
-  gn_epilogue_kernel<<<(B + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
-      (const float*)H, (const float*)b, (const float*)t, t_stride, (const float*)q, q_stride,
+  gn_epilogue_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
+      (const float*)parts, n_parts, (const float*)t, t_stride, (const float*)q, q_stride,
       (const float*)norm_in, norm_stride, (const unsigned char*)active, (const float*)guess_t,
-      B, prior_w, damping, (float*)pose_out);
+      prior_w, damping, (float*)pose_out);
   return (int)cudaGetLastError();
 }

@@ -21,12 +21,15 @@ from the device (one synchronisation per round).
 Groups (the JAX package's `axis_name`): with a group of ranks (an sp group,
 each rank holding a slice of the queries, or a spatial group, each rank
 holding the queries it owns under a column-sharded map, `owner_fn`), the
-round's match count and cost sum are summed over the group in one
-all-reduce, and each Gauss-Newton step is split around the sum of H and b
-(kernels/jtwj.py `jtwj_accumulate`, the all-reduce, `gn_epilogue`), so every
-rank takes the same step and reads the same exit condition: a decision read
-from a rank's own values would desynchronise the group's collectives. A
-group of size 1 runs today's fused step.
+round's match count and cost sum are gathered from the group in one
+collective and added in rank order, and each Gauss-Newton step is split
+around the sum of H and b over the group: the ranks' parts are gathered and
+added in rank order inside kernel K2 (kernels/jtwj.py `jtwj_accumulate`,
+then per step a gather and `gn_sum_step`, the last gather's sum in
+`gn_epilogue`). So every rank takes the same step and reads the same exit
+condition (a decision read from a rank's own values would desynchronise the
+group's collectives), with the same bits on every backend and any group
+size. A group of size 1 runs the fused step.
 
 Lanes: `align` also takes B independent problems at once (a leading lane
 axis on the map, the queries and the guess), as the JAX package's
@@ -46,7 +49,7 @@ import torch
 
 from lidar_odometry_demo_tpu_torch.config import OdometryConfig
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
-    GnWork, gn_epilogue, gn_step, jtwj_accumulate)
+    GnWork, gn_epilogue, gn_step, gn_sum_step, jtwj_accumulate, sum_in_rank_order)
 from lidar_odometry_demo_tpu_torch.kernels.search import query_world
 from lidar_odometry_demo_tpu_torch.ops import se3
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
@@ -68,24 +71,27 @@ def _gn_steps(corr: vm.Correspondence, pose: se3.Pose, guess_t: torch.Tensor,
     on CUDA, with no tensor operation between them; step k writes slot k of
     `work` (allocated here if the caller has none). Over a lane axis, a
     lane where `active` is false keeps `pose` and `step_norm`. With a
-    `group` of more than one rank each step is split: H and b at the pose
-    (`jtwj_accumulate`), their sum over the group (one all-reduce of
-    `work.hb`), then the epilogue on the sums (`gn_epilogue`)."""
+    `group` of more than one rank each step is split around the sum of the
+    ranks' H and b: this rank's part at the round's pose
+    (`jtwj_accumulate`), then per step the group's gather of the parts and
+    one launch that adds them in rank order, takes the step and accumulates
+    the next part at the new pose (`gn_sum_step`); the last gather's parts
+    go to `gn_epilogue`. Per round: n K2 launches, n gathers and one K2e."""
     n = cfg.icp_inner_iterations
     if work is None:
         work = GnWork.empty(n, pose.t.device, tuple(guess_t.shape[:-1]))
-    split = group is not None and group.size > 1
-    for k in range(n):
-        if split:
-            jtwj_accumulate(corr, pose, huber_delta=cfg.icp_huber_delta, work=work,
-                            active=active)
-            group.psum(work.hb, "H,b")
-            pose, step_norm = gn_epilogue(work.H, work.b, pose, guess_t, cfg, work=work,
-                                          slot=k, step_norm=step_norm, active=active)
-        else:
+    if group is None or group.size == 1:
+        for k in range(n):
             pose, step_norm, _, _ = gn_step(corr, pose, guess_t, cfg, work=work, slot=k,
                                             step_norm=step_norm, active=active)
-    return pose, step_norm
+        return pose, step_norm
+    jtwj_accumulate(corr, pose, huber_delta=cfg.icp_huber_delta, work=work, active=active)
+    for k in range(n - 1):
+        parts = group.gather_parts(work.hb, "H,b")
+        pose, step_norm = gn_sum_step(parts, corr, pose, guess_t, cfg, work=work, slot=k,
+                                      step_norm=step_norm, active=active)
+    return gn_epilogue(group.gather_parts(work.hb, "H,b"), pose, guess_t, cfg, work=work,
+                       slot=n - 1, step_norm=step_norm, active=active)
 
 
 def make_align(cfg: OdometryConfig, group=None, owner_fn=None):
@@ -98,11 +104,11 @@ def make_align(cfg: OdometryConfig, group=None, owner_fn=None):
 
     `group` (parallel/mesh.py Group): the ranks that share this problem,
     each with its own queries (and, under a column-sharded map, its own
-    map view); the counts, cost sums, H and b are summed over it, so every
-    rank returns the same result. `owner_fn(m, q_world) -> bool mask`
-    restricts a rank to the queries it owns (parallel/spatial.py): at the
-    guess pose for the cached candidates, at the round's pose on the exact
-    path, so the queries stay partitioned at every pose."""
+    map view); the counts, cost sums, H and b are summed over it in rank
+    order, so every rank returns the same result. `owner_fn(m, q_world) ->
+    bool mask` restricts a rank to the queries it owns (parallel/spatial.py):
+    at the guess pose for the cached candidates, at the round's pose on the
+    exact path, so the queries stay partitioned at every pose."""
     voxel_size = cfg.keyframe_voxel_size
     max_dist = cfg.icp_max_correspondence_distance
     delta = cfg.icp_huber_delta
@@ -167,9 +173,9 @@ def make_align(cfg: OdometryConfig, group=None, owner_fn=None):
             absr = torch.abs(r)
             hub = torch.where(absr <= delta, 0.5 * r * r, delta * (absr - 0.5 * delta))
             cost_sum = torch.sum(torch.where(corr.valid, hub, 0.0), dim=-1)
-            if group is not None and group.size > 1:  # one all-reduce of both
-                sums = group.psum(torch.stack([cost_sum, round_matches.to(torch.float32)]),
-                                  "matches,cost")
+            if group is not None and group.size > 1:  # one gather of both
+                sums = sum_in_rank_order(group.gather_parts(
+                    torch.stack([cost_sum, round_matches.to(torch.float32)]), "matches,cost"))
                 cost_sum, round_matches = sums[0], sums[1].to(torch.int32)
             cost = cost_sum / torch.clamp_min(round_matches.to(torch.float32), 1.0)
             improved = cost < best_cost * (1.0 - cfg.icp_stall_rel_tolerance)

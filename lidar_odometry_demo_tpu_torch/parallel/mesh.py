@@ -15,6 +15,10 @@ rank. Rank r sits at (r // sp, r % sp). The ranks of one dp index form an
 sp group (`dist.new_group`); the sp axis's collectives run on it:
 
 - `psum(x)`: an all-reduce with SUM over the sp group, in place;
+- `gather_parts(x)`: every rank's x in group order, (n, *x.shape), for a
+  sum the caller takes in a stated order (the split Gauss-Newton step and
+  ICP's round sums add their parts in rank order, so every rank and every
+  backend gives the same bits; an all-reduce adds in an order of its own);
 - `ppermute_from(xs, offset)`: receive from sp rank (r + offset) mod n
   what it sends, through `dist.batch_isend_irecv`.
 
@@ -24,10 +28,11 @@ the multi-process demo print it); it is never a fallback:
 - gloo for CPU tensors;
 - NCCL when every rank has a card of its own;
 - gloo when ranks share a card: NCCL refuses two ranks on one device.
-  Gloo all-reduces CUDA tensors, but it does not send or receive them, so
-  on gloo `ppermute_from` stages a CUDA tensor through pinned host memory
-  (device -> host, the exchange, host -> device), and counts and times
-  the staging. The tensors and every kernel stay on the card.
+  Gloo all-reduces and all-gathers CUDA tensors, but it does not send or
+  receive them, so on gloo `ppermute_from` stages a CUDA tensor through
+  pinned host memory (device -> host, the exchange, host -> device), and
+  counts and times the staging. The tensors and every kernel stay on the
+  card.
 
 Every group is created with a timeout (120 s by default), so a
 mismatched collective raises instead of hanging.
@@ -86,7 +91,9 @@ def _stream_event(device: torch.device) -> torch.cuda.Event:
 
 @dataclass
 class CommStats:
-    """What one group's collectives cost this process: counts, host ms and
+    """What one group's collectives cost this process: counts (in
+    `collectives` the all-reduces and the gathers, in `gathers` the gathers
+    alone), host ms and
     device ms, and the bytes and ms of the host staging of CUDA tensors on
     gloo.
 
@@ -107,6 +114,7 @@ class CommStats:
     event is made and they stay 0."""
 
     collectives: int = 0
+    gathers: int = 0
     collective_host_ms: float = 0.0
     collective_device_ms: float = 0.0
     wait_ms: float = 0.0
@@ -124,7 +132,7 @@ class CommStats:
     def reset(self, device_timing: bool = False) -> None:
         """Every count and time to 0; device spans taken from now on only
         with `device_timing`."""
-        for f in ("collectives", "exchanges", "exchanged_bytes", "staged_bytes"):
+        for f in ("collectives", "gathers", "exchanges", "exchanged_bytes", "staged_bytes"):
             setattr(self, f, 0)
         for f in ("collective_host_ms", "collective_device_ms", "wait_ms", "exchange_host_ms",
                   "exchange_device_ms", "staging_ms"):
@@ -151,7 +159,7 @@ class CommStats:
     def as_dict(self) -> dict:
         self.settle()
         return {f: getattr(self, f) for f in (
-            "collectives", "collective_host_ms", "collective_device_ms", "wait_ms",
+            "collectives", "gathers", "collective_host_ms", "collective_device_ms", "wait_ms",
             "exchanges", "exchange_host_ms", "exchange_device_ms", "exchanged_bytes",
             "staged_bytes", "staging_ms")} | {"by_kind": dict(self.by_kind)}
 
@@ -161,8 +169,9 @@ class Group:
     rank's index in it, and its collectives. `live`: the group has a
     process group behind it (its own, or the default group when it holds
     every rank, a world of one included). A group that is not live runs no
-    collective: `psum` returns x and `ppermute_from` its inputs (one rank
-    of a larger world, or one process with no group at all)."""
+    collective: `psum` returns x, `gather_parts` a copy of x as the one
+    part and `ppermute_from` its inputs (one rank of a larger world, or one
+    process with no group at all)."""
 
     def __init__(self, pg, ranks: list[int], rank: int, backend: str, stats: CommStats,
                  live: bool = False):
@@ -209,6 +218,30 @@ class Group:
                                 _stream_event(x.device))
         self._count(kind)
         return x
+
+    def gather_parts(self, x: torch.Tensor, kind: str = "gather") -> torch.Tensor:
+        """Every group rank's x (same shape and dtype on every rank), stacked
+        in group order: (n, *x.shape), the parts exactly as each rank sent
+        them, so a sum of them in a stated order has the same bits on every
+        rank. One all_gather_into_tensor on every backend (gloo takes CUDA
+        tensors as well), counted and timed as `psum`. A group that is not
+        live returns a copy of x as the one part, (1, *x.shape)."""
+        if not self.live:
+            return x.unsqueeze(0).clone()
+        self._wait_for_queued(x)
+        on_device = self._device_timed(x)
+        if on_device:
+            start = _stream_event(x.device)
+        t0 = time.perf_counter()
+        out = torch.empty((self.size, *x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out.view(-1), x.contiguous().view(-1), group=self.pg)
+        self.stats.collectives += 1
+        self.stats.gathers += 1
+        self.stats.collective_host_ms += (time.perf_counter() - t0) * 1e3
+        if on_device:
+            self.stats.add_span("collective_device_ms", start, _stream_event(x.device))
+        self._count(kind)
+        return out
 
     def ppermute_from(self, xs, offset: int):
         """Receive from group rank (r + offset) mod n the tensors it passes

@@ -14,10 +14,11 @@ by import.
 This process first computes the references on cuda:0: the main path
 (chip_smoke phase 3) and the fleet path at B = 8 (phase 7) on the 40-scan
 bench drive at full width (`OdometryConfig()`), the one-process sp
-witnesses (`sp_witness`, the split sums added in rank order, and at four
-ranks also pairwise), the
+witnesses at two and four ranks (`sp_witness`, the split parts gathered
+and added in rank order, as the ranks add them), the
 one-process refines on the card, and each kernel against its plain version
-(phases 2 and 4, and K2's epilogue entry point). Then every mode that fits
+(phases 2 and 4, K2's split-step entry points included). Then every mode
+that fits
 the cards, the shapes for four (with two, those that fit):
 
 a. K2 on two cards in one process: the fused step (`gn_step`) and
@@ -29,21 +30,18 @@ b. dp = N fleet: phase 7's 8 lanes on each card (B = 8N): every lane
    ratio to N times phase 7's B = 8 rate in this call (the scaling
    efficiency), each rank's host-clock and process-CPU ms per step beside
    its CUDA-event ms, the host's cores and each rank's CPU affinity;
-c. sp = 2 on two cards: bitwise the two-thread witness (a sum of two
-   operands does not depend on its order), iterations equal to phase 3's,
-   within 1e-4 m of phase 3 (the JAX package's bar for an sp sequence,
+c. sp = 2 on two cards: bitwise the two-thread witness, iterations equal
+   to phase 3's, within 1e-4 m of phase 3 (the JAX package's bar for an sp sequence,
    tests/test_parallel.py:147), ATE within 1e-4 m of 0.00936 m;
-d. sp = 4, then dp = 2 x sp = 2 (the bench drive on each dp index): every
-   rank's poses, iterations and matches bitwise every other rank's, matches
-   within 2 % of phase 3's largest count, iterations equal, ATE as in c. dp 2 x sp 2 is
-   bitwise the witness and within 1e-4 m of phase 3, as c. At sp = 4 NCCL
-   adds the four parts in an order of its own, so the ranks are held to
-   no witness bitwise: a second pass checks every all-reduce's result
-   against the rank-order sum of the operands gathered from every rank
-   (within 2 (n - 1) eps sum |x_i| per element, where a lost or doubled
-   part moves it by that part), the distances from the rank-order and the
-   pairwise witness are printed, and the trajectory is held to
-   SP_REORDERED_FROM_MAIN_M of phase 3;
+d. sp = 4, then dp = 2 x sp = 2 (the bench drive on each dp index), as c:
+   every rank's poses, iterations and matches bitwise every other rank's
+   and bitwise the witness of its group size (every sum over the ranks is
+   added in rank order, by K2 for H and b, so NCCL adds nothing of its
+   own), within 1e-4 m of phase 3, matches within 2 % of phase 3's largest
+   count, iterations equal, ATE as in c. At sp = 4 a second pass checks
+   every gather (its parts bitwise the operands all-gathered again from
+   every rank) and every sum K2 takes of them (bitwise the rank-order sum of
+   the parts the rank gathered, added by torch);
 e. spatial N = 4: shards of C/4 rows, halo views of 3C/4; within 1e-3 m of
    phase 3, ATE under 0.03 m, the shards disjoint with phase 3's voxel
    count in all, and on each rank the halo view's search bitwise the
@@ -67,11 +65,12 @@ i. the CLI and the launcher: `fleet --batch 8 --scans 40 --dp 2 --sp 2`
    --nproc-per-node N -m lidar_odometry_demo_tpu_torch.parallel.multihost`,
    whose report must show backend nccl and `max_lane_vs_single_dt` 0.
 
-Each mode prints its per-rank ms/scan (CUDA events), collectives per scan
-with their host and device ms, exchanged bytes, and (b, d, e) launches per
-rank per scan. Prints a `kernels` JSON line (each kernel's launches per
-rank in every mode beside its times from this call), each card's name and
-power limit, then as its last line
+Each mode prints its per-rank ms/scan (CUDA events), collectives and
+gathers per scan with their host and device ms, exchanged bytes, and (b-f)
+launches per rank per scan, K2e's and `gn_sum_step`'s among them. Prints a
+`kernels` JSON line (each kernel's launches per rank in every mode beside
+its times from this call), each card's name and power limit, then as its
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}, N the
 cards used. Exits non-zero without a result when no CUDA device is
 present.
@@ -94,13 +93,6 @@ from chip_smoke import log
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out", "multicard")
-# sp = 4's trajectory against phase 3's, m. Past two ranks NCCL adds the
-# four parts of each sum in an order of its own. The one-process witnesses
-# of two other orders of the same parts (`references`) land 4.07e-5 m (rank
-# order) and 1.73e-4 m (pairwise) from phase 3 on the bench drive, 1.33e-4
-# m from each other (H100): the order alone moves it that far, and the bar
-# lies just above
-SP_REORDERED_FROM_MAIN_M = 2e-4
 SPATIAL_FROM_MAIN_M = smoke.SPATIAL_FROM_MAIN_M
 REFINE_FROM_ONE_M = 1e-4
 CHECKPOINT_AFTER = 20     # the sharded checkpoint is saved after this scan
@@ -208,50 +200,75 @@ def _sp_drive(cfg, mesh, scans, counted, sync_ranks) -> dict:
     return r
 
 
-class SumCheckedGroup:
-    """An sp group (parallel/mesh.py Group) whose every psum is checked:
-    the operands are first gathered from every rank (all_gather), and the
-    all-reduce's result must lie within 2 (n - 1) eps sum_i |x_i| of their
-    sum in rank order, element by element. Any order of n float additions
-    is within (n - 1) (eps / 2) sum_i |x_i| of the exact sum, so two orders
-    lie within half that bound; a rank's part lost or counted twice moves
-    the element by that part. `worst`: the largest error over its bound."""
+class GatherCheckedGroup:
+    """An sp group (parallel/mesh.py Group) whose every gather is checked:
+    the parts it returns must equal bitwise (as int32 bits) the operands
+    all-gathered again from every rank (`dist.all_gather`, a list of
+    tensors): each rank's part arrives as it was sent, in rank order.
+    `calls`, `unequal`: the gathers and those that differed."""
 
     def __init__(self, group):
         self.group, self.size, self.rank = group, group.size, group.rank
-        self.calls, self.worst = 0, 0.0
+        self.calls, self.unequal = 0, 0
 
-    def psum(self, x, kind: str = "psum"):
+    def gather_parts(self, x, kind: str = "gather"):
         import torch
         import torch.distributed as dist
 
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group.pg)
-        self.group.psum(x, kind)
-        total, scale = parts[0], parts[0].abs()
-        for y in parts[1:]:
-            total, scale = total + y, scale + y.abs()
-        eps = torch.finfo(x.dtype).eps if x.dtype.is_floating_point else 0.0
-        err = (x - total).abs().to(torch.float64)
-        bound = 2 * (self.size - 1) * eps * scale.to(torch.float64)
-        ratio = torch.where(err == 0, 0.0, err / bound)  # inf where the bound is 0
+        parts = self.group.gather_parts(x, kind)
+        again = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(again, x.contiguous(), group=self.group.pg)
         self.calls += 1
-        self.worst = max(self.worst, float(ratio.max()))
-        return x
+        self.unequal += int(not torch.equal(parts.view(torch.int32),
+                                            torch.stack(again).view(torch.int32)))
+        return parts
 
 
 def checked_sums(cfg, mesh, scans) -> dict:
-    """One more pass of `scans` on the sp path with every all-reduce
-    checked (SumCheckedGroup). Returns the all-reduces and the worst
-    error over its bound."""
+    """One more pass of `scans` on the sp path with every gather checked
+    (GatherCheckedGroup) and every step K2 takes on the gathered parts
+    (`gn_sum_step`, K2e) held bitwise, pose and step norm, to K2e on the
+    rank-order sum of those parts by torch (`sum_in_rank_order`) at the
+    same input pose. Returns the gathers and steps checked and how many
+    differed."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import GnWork, sum_in_rank_order
+    from lidar_odometry_demo_tpu_torch.ops import icp
     from lidar_odometry_demo_tpu_torch.pipeline import odometry
 
-    group = SumCheckedGroup(mesh.sp)
-    step = odometry.make_process_scan(cfg, sp_group=group)
-    state = odometry.init_state(cfg, mesh.device)
-    for scan in scans:
-        state, _ = step(state, scan)
-    return dict(calls=group.calls, worst=group.worst)
+    group = GatherCheckedGroup(mesh.sp)
+    seen = {"steps": 0, "steps_unequal": 0}
+    entry_points = {name: getattr(icp, name) for name in ("gn_sum_step", "gn_epilogue")}
+    epilogue = entry_points["gn_epilogue"]
+
+    def checked(fn):
+        def call(parts, *args, **kwargs):
+            pose, guess_t, step_cfg = args[-3:]
+            launches = epilogue.launches  # the check's launch is not the path's
+            want = epilogue(sum_in_rank_order(parts)[None], pose, guess_t, step_cfg,
+                            work=GnWork.empty(1, parts.device, tuple(parts.shape[1:-1])),
+                            step_norm=kwargs.get("step_norm"), active=kwargs.get("active"))
+            epilogue.launches = launches
+            got = fn(parts, *args, **kwargs)
+            seen["steps"] += 1
+            seen["steps_unequal"] += int(not all(
+                torch.equal(x, y) for x, y in zip((got[0].t, got[0].q, got[1]),
+                                                  (want[0].t, want[0].q, want[1]))))
+            return got
+        return call
+
+    try:
+        for name, fn in entry_points.items():
+            setattr(icp, name, checked(fn))
+        step = odometry.make_process_scan(cfg, sp_group=group)
+        state = odometry.init_state(cfg, mesh.device)
+        for scan in scans:
+            state, _ = step(state, scan)
+    finally:
+        for name, fn in entry_points.items():
+            setattr(icp, name, fn)
+    return dict(calls=group.calls, unequal=group.unequal, **seen)
 
 
 def sp_pair_rank(inputs: str, cfg) -> dict:
@@ -347,6 +364,8 @@ def card_rank(inputs: str, cfg) -> dict:
         torch.cuda.synchronize()
         dist.barrier()
         grid.stats.reset(device_timing=True)
+        for fn in counted.values():
+            fn.launches = 0
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         _, d = run(init(), scans_b)
@@ -354,7 +373,8 @@ def card_rank(inputs: str, cfg) -> dict:
         end.synchronize()
         mine = grid.lanes(lanes)
         out["f"] = dict(t=d.pose.t, lanes=(mine.start, mine.stop), stats=grid.stats.as_dict(),
-                        ms_per_scan=start.elapsed_time(end) / len(bench))
+                        ms_per_scan=start.elapsed_time(end) / len(bench),
+                        launches={k: fn.launches for k, fn in counted.items()})
 
     def refines():  # g
         _, _, est_t, est_q, closure = smoke.make_noisy_loop(32, 0.03)
@@ -394,20 +414,22 @@ def card_rank(inputs: str, cfg) -> dict:
 
 def check_sp4_sums(rs: list) -> dict:
     """d at sp > 2: every rank's checked pass (checked_sums) made as many
-    all-reduces as the others, and every result lay within its bound of
-    the rank-order sum of the gathered operands."""
+    gathers and K2 steps as the others, every gather returned the operands
+    of every rank bitwise, and every step K2 took on them was bitwise K2e on
+    the rank-order sum of the parts the rank gathered."""
     sums = [r["sums"] for r in rs]
-    log(f"d. sp = {len(rs)}: every all-reduce of a second pass checked against the rank-order "
-        f"sum of the operands gathered from every rank: {[s['calls'] for s in sums]} all-reduces "
-        f"per rank, worst error {max(s['worst'] for s in sums):.3g} of its bound "
-        f"2 (n - 1) eps sum |x_i|")
-    if len({s["calls"] for s in sums}) != 1 or sums[0]["calls"] == 0:
+    log(f"d. sp = {len(rs)}: a second pass, every gather checked against the operands "
+        f"all-gathered again ({[s['calls'] for s in sums]} per rank, "
+        f"{sum(s['unequal'] for s in sums)} differed) and every step K2 took on the parts "
+        f"against K2e on their rank-order sum ({[s['steps'] for s in sums]} per rank, "
+        f"{sum(s['steps_unequal'] for s in sums)} differed)")
+    if (len({(s["calls"], s["steps"]) for s in sums}) != 1 or sums[0]["calls"] == 0
+            or sums[0]["steps"] == 0):
         raise AssertionError(f"d. the ranks' checked passes made {[s['calls'] for s in sums]} "
-                             f"all-reduces")
-    if max(s["worst"] for s in sums) > 1.0:
-        raise AssertionError(f"d. an all-reduce's result is {max(s['worst'] for s in sums)} of "
-                             f"its bound from the sum of the ranks' operands")
-    return dict(calls=sums[0]["calls"], worst=max(s["worst"] for s in sums))
+                             f"gathers and {[s['steps'] for s in sums]} steps")
+    if any(s["unequal"] or s["steps_unequal"] for s in sums):
+        raise AssertionError(f"d. a gather or a step differs from its rank-order check: {sums}")
+    return dict(calls=sums[0]["calls"], steps=sums[0]["steps"])
 
 
 def check_dp_scaling(rs: list, fleet: dict, n: int) -> dict:
@@ -471,23 +493,25 @@ def check_spatial_fleet(fs: list, fleet: dict) -> dict:
         lo, hi = f["lanes"]
         worst = max(worst, float(np.abs(f["t"] - fd[:, lo:hi]).max()))
         st = f["stats"]
+        launches = " / ".join(f"{k} {v / n_scans:.2f}" for k, v in f["launches"].items())
         log(f"f. dp = 2 x spatial N = 2, rank {i}: lanes {lo}-{hi - 1}, {f['ms_per_scan']:.3f} "
             f"ms per step of {hi - lo} (CUDA events); collectives "
-            f"{st['collectives'] / n_scans:.2f}/step, device "
-            f"{st['collective_device_ms'] / n_scans:.4f} ms; halo "
+            f"{st['collectives'] / n_scans:.2f}/step (gathers {st['gathers'] / n_scans:.2f}), "
+            f"device {st['collective_device_ms'] / n_scans:.4f} ms; halo "
             f"{st['exchanged_bytes'] / n_scans / 1e6:.3f} MB/step, device "
             f"{st['exchange_device_ms'] / n_scans:.4f} ms, host "
-            f"{st['exchange_host_ms'] / n_scans:.4f} ms")
+            f"{st['exchange_host_ms'] / n_scans:.4f} ms; launches per step {launches}")
     log(f"f. every lane within {worst:.3g} m of its phase-7 lane (bar {SPATIAL_FROM_MAIN_M})")
     if worst > SPATIAL_FROM_MAIN_M:
         raise AssertionError(f"f. a lane is {worst} m from its phase-7 lane")
-    return dict(from_phase7_m=worst, ms=[f["ms_per_scan"] for f in fs])
+    return dict(from_phase7_m=worst, ms=[f["ms_per_scan"] for f in fs],
+                launches=fs[0]["launches"])
 
 
 def references(bench: dict, device) -> dict:
-    """Phases 2-4 and 7 of chip_smoke.py on cuda:0, the sp witnesses (two
-    ranks in rank order; four in rank order and pairwise) and the
-    one-process refines on the card: what the modes are held to."""
+    """Phases 2-4 and 7 of chip_smoke.py on cuda:0, the sp witnesses at
+    two and four ranks and the one-process refines on the card: what the
+    modes are held to."""
     import torch
 
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig
@@ -499,23 +523,19 @@ def references(bench: dict, device) -> dict:
     odo, launches, diags, ms = smoke.run_main_path(bench, device)
     lookups = smoke.path_lookups(odo, bench["scans"][-1])
     kernels.append(smoke.check_search(device, lookups))
-    kernels.append(smoke.check_gn_epilogue(np.random.default_rng(7), device))
+    kernels += list(smoke.check_gathered_step(np.random.default_rng(7), device))
     ref = smoke.path_reference(bench, diags, odo) | dict(
         kernels=kernels, main_ms=ms, main_launches=launches,
         queries=[x.cpu() for x in lookups["neighbourhood"][0][0][3:7]],
         fleet=smoke.run_fleet(bench, diags, odo, ms, device))
-    ref["witness"] = {2: {}, 4: {}}
-    for n, order in ((2, "rank"), (4, "rank"), (4, "pairwise")):
+    ref["witness"] = {}
+    for n in (2, 4):
         t0 = time.perf_counter()
-        w = ref["witness"][n][order] = smoke.sp_witness(cfg, bench["scans"], device, n, order)
-        log(f"references: the sp witness at n = {n}, the sums added in {order} order (threads "
-            f"of this process), in {time.perf_counter() - t0:.1f} s: "
+        w = ref["witness"][n] = smoke.sp_witness(cfg, bench["scans"], device, n)
+        log(f"references: the sp witness at n = {n}, the parts gathered and added in rank order "
+            f"(threads of this process), in {time.perf_counter() - t0:.1f} s: "
             f"{float(np.abs(w['t'] - ref['t']).max()):.3g} m from phase 3, matches off by at "
             f"most {int(np.abs(w['matches'] - ref['matches']).max())}")
-    w4 = ref["witness"][4]
-    log(f"references: the two sp = 4 witnesses (t, q) "
-        f"{max(float(np.abs(w4['rank'][f] - w4['pairwise'][f]).max()) for f in ('t', 'q')):.3g} "
-        f"apart")
     gt_t, _, est_t, est_q, closure = smoke.make_noisy_loop(32, 0.03)
     g = pg.chain_from_odometry(est_t, est_q, closures=[(31, 0, closure(31, 0), 1.0)],
                                device=device)
@@ -646,9 +666,8 @@ def main() -> int:
             log(f"{mode}: FAILED on the ranks\n{err}")
         sp_n = [r.get("d_sp") for r in ranks]
         checks = {"b": (lambda: check_dp_scaling([r["b"] for r in ranks], ref["fleet"], n)),
-                  "d_sp": (lambda: smoke.check_sp_ranks(
-                      f"d. sp = {n}", sp_n, ref, ref["witness"][n], bitwise=n == 2,
-                      bar=smoke.SP_FROM_MAIN_M if n == 2 else SP_REORDERED_FROM_MAIN_M)),
+                  "d_sp": (lambda: smoke.check_sp_ranks(f"d. sp = {n}", sp_n, ref,
+                                                        ref["witness"][n])),
                   "d_sums": (lambda: check_sp4_sums(sp_n)),
                   "d_grid": (lambda: smoke.check_sp_ranks(
                       "d. dp = 2 x sp = 2", [r["d_grid"] for r in ranks], ref,
@@ -673,7 +692,7 @@ def main() -> int:
     kernels = ref["kernels"]
     for k in kernels:
         k["launches_main"] = ref["main_launches"].get(k["name"], 0)
-        for mode in ("b", "c", "d_sp", "d_grid", "e"):
+        for mode in ("b", "c", "d_sp", "d_grid", "e", "f"):
             if mode in results and "launches" in results[mode]:
                 k[f"launches_multicard_{mode}"] = results[mode]["launches"][k["name"]]
         k["launches"] = k.get("launches_multicard_e", k["launches_main"])

@@ -248,3 +248,37 @@ def test_multicard_smoke_without_a_card_exits_non_zero():
     assert proc.returncode != 0
     assert not [line for line in proc.stdout.splitlines() if line.startswith("{")]
     assert "no CUDA device" in proc.stderr
+
+
+def test_chip_smoke_reaps_the_processes_it_started():
+    """chip_smoke.stop_helper_processes, which runs as the script exits, ends
+    a spawned child still running and multiprocessing's resource tracker,
+    and reaps both: neither outlives the script, not even as a zombie."""
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    script = f"""
+import importlib.util, multiprocessing, os, time
+from multiprocessing import resource_tracker
+
+spec = importlib.util.spec_from_file_location("chip_smoke", {str(repo / "chip_smoke.py")!r})
+chip_smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(chip_smoke)
+child = multiprocessing.get_context("spawn").Process(target=time.sleep, args=(60,), daemon=True)
+child.start()
+pids = [resource_tracker._resource_tracker._pid, child.pid]
+chip_smoke.stop_helper_processes()
+for pid in pids:
+    try:
+        os.kill(pid, 0)
+        print(pid, "alive")
+    except ProcessLookupError:
+        print(pid, "gone")
+"""
+    proc = subprocess.run([sys.executable, "-c", script], cwd=repo, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.split("\n")[:2]
+    assert [line.split()[1] for line in lines] == ["gone", "gone"], proc.stdout

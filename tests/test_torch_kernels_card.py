@@ -12,9 +12,13 @@ and d2 within atol 1e-6; K2 within rtol 2e-5 / atol 1e-4 of its plain
 version and bitwise equal across two runs; K2's whole step likewise for H
 and b, the pose within 1e-6 and the step norm within rtol 1e-5, bitwise
 equal across two runs and across 100 steps on one workspace; K2 split
-around a sum over ranks (the epilogue off, then the epilogue entry point on
-that H and b) bitwise the whole step, and within 1e-6 of the epilogue's
-plain version; the column-sharded map's composite view searched by K3
+around a sum over ranks (the epilogue off, then K2e on that one part)
+bitwise the whole step, and within 1e-6 of the epilogue's plain version;
+K2's split-step entry points on the parts of N = 1, 2, 4 fake ranks
+(`gn_sum_step`, and K2e on the N parts) bitwise the sequence they replace
+(the torch rank-order sum, K2e on it, `jtwj_accumulate` at its pose), the
+pose within 1e-6, the step norm within rtol 1e-5 and the new part within
+K2's tolerances of their plain versions; the column-sharded map's composite view searched by K3
 and K1 bitwise the replicated map's search; K3 equal to
 its plain version and to
 torch.searchsorted at every index, and its neighbourhood and group lookups
@@ -35,8 +39,8 @@ from lidar_odometry_demo_tpu_torch.io.simulator import sample_structured_cloud, 
 from lidar_odometry_demo_tpu_torch.kernels.correspondence import (
     match_correspondences, match_correspondences_plain, match_rows, match_rows_plain)
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
-    GnWork, gn_epilogue, gn_epilogue_plain, gn_step, gn_step_plain, jtwj_accumulate,
-    jtwj_plain)
+    GnWork, gn_epilogue, gn_epilogue_plain, gn_epilogue_sum_plain, gn_step, gn_step_plain,
+    gn_sum_step, gn_sum_step_plain, jtwj_accumulate, jtwj_plain, sum_in_rank_order)
 from lidar_odometry_demo_tpu_torch.kernels.search import (
     group_lookup, group_lookup_plain, neighborhood_lookup, neighborhood_lookup_plain,
     search_sorted, search_sorted_plain)
@@ -507,7 +511,7 @@ def test_gn_step_over_lanes_with_an_inactive_lane(rng):
 def _split_step(corr, pose, guess_t, cfg, work, **lane_args):
     H, b = jtwj_accumulate(corr, pose, huber_delta=cfg.icp_huber_delta, work=work,
                            active=lane_args.get("active"))
-    new, norm = gn_epilogue(H, b, pose, guess_t, cfg, work=work, **lane_args)
+    new, norm = gn_epilogue(work.hb[None], pose, guess_t, cfg, work=work, **lane_args)
     return new, norm, H, b
 
 
@@ -555,6 +559,90 @@ def test_split_step_over_lanes_with_an_inactive_lane(rng):
     (pt, pq), _ = gn_epilogue_plain(split[3], split[4], pose, guess_t, cfg, **lane_args)
     assert torch.allclose(split[0], pt, atol=1e-6, rtol=0)
     assert torch.allclose(split[1], pq, atol=1e-6, rtol=0)
+
+
+def _lanes_of_parts(rng, n):
+    """B = 3 lanes at Q = 8192 (lane 1 inactive) cut into the row slices of
+    n fake ranks, each slice's part at the pose from jtwj_accumulate:
+    (slices, parts (n, 3, 42), pose, guess_t, lane_args)."""
+    per = [_step_inputs(rng, 8192) for _ in range(3)]
+    corr = Correspondence(*(torch.stack(xs) for xs in zip(*[p[0] for p in per])))
+    pose = Pose(torch.stack([p[1].t for p in per]), torch.stack([p[1].q for p in per]))
+    guess_t = torch.stack([p[2] for p in per])
+    lane_args = dict(step_norm=torch.tensor([0.5, 0.25, 0.125], device="cuda"),
+                     active=torch.tensor([True, False, True], device="cuda"))
+    rows = [slice(r * 8192 // n, (r + 1) * 8192 // n) for r in range(n)]
+    slices = [Correspondence(*(x[:, s].contiguous() for x in corr)) for s in rows]
+    parts = []
+    for part_corr in slices:
+        work = GnWork.empty(1, "cuda", (3,))
+        jtwj_accumulate(part_corr, pose, huber_delta=0.15, work=work,
+                        active=lane_args["active"])
+        parts.append(work.hb)
+    return slices, torch.stack(parts), pose, guess_t, lane_args
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_gn_epilogue_on_parts_is_the_epilogue_on_their_sum(rng, n):
+    """K2e on n ranks' parts (B = 3, lane 1 inactive): bitwise K2e on their
+    rank-order sum by torch (one part), the inactive lane held; the pose
+    within 1e-6 and the step norm within rtol 1e-5 of its plain version;
+    one launch."""
+    _need_card()
+    cfg = OdometryConfig()
+    _, parts, pose, guess_t, lane_args = _lanes_of_parts(rng, n)
+    total = sum_in_rank_order(parts)
+    want = _snapshot((*gn_epilogue(total[None], pose, guess_t, cfg,
+                                   work=GnWork.empty(1, "cuda", (3,)), **lane_args), total, total))
+    before = gn_epilogue.launches
+    got = _snapshot((*gn_epilogue(parts, pose, guess_t, cfg, work=GnWork.empty(1, "cuda", (3,)),
+                                  **lane_args), total, total))
+    assert gn_epilogue.launches == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+    assert torch.equal(got[0][1], pose.t[1]) and float(got[2][1]) == 0.25
+    (pt, pq), pnorm = gn_epilogue_sum_plain(parts, pose, guess_t, cfg, **lane_args)
+    assert torch.allclose(got[0], pt, atol=1e-6, rtol=0)
+    assert torch.allclose(got[1], pq, atol=1e-6, rtol=0)
+    assert torch.allclose(got[2], pnorm, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_gn_sum_step_is_the_launch_sequence_it_replaces(rng, n):
+    """gn_sum_step on n ranks' parts, for every rank's slice (B = 3, lane 1
+    inactive): pose and step norm bitwise K2e on the torch rank-order sum,
+    and the part it writes bitwise `jtwj_accumulate` at that pose (the
+    active lanes); within 1e-6 (pose) and rtol 1e-5 (step norm) of its plain
+    version, and the part, entry by entry, within 4 eps sqrt(Q / n) of its
+    terms' magnitudes (chip_smoke.abs_terms_sum) of `jtwj_plain` at the
+    kernel's pose; one launch, counted apart from K2's others."""
+    _need_card()
+    cfg = OdometryConfig()
+    abs_terms_sum = _smoke().abs_terms_sum
+    eps = float(np.finfo(np.float32).eps)
+    slices, parts, pose, guess_t, lane_args = _lanes_of_parts(rng, n)
+    total = sum_in_rank_order(parts)
+    old_work = GnWork.empty(1, "cuda", (3,))
+    old_pose, old_norm = gn_epilogue(total[None], pose, guess_t, cfg, work=old_work, **lane_args)
+    for part_corr in slices:
+        acc = GnWork.empty(1, "cuda", (3,))
+        jtwj_accumulate(part_corr, old_pose, huber_delta=cfg.icp_huber_delta, work=acc,
+                        active=lane_args["active"])
+        work = GnWork.empty(1, "cuda", (3,))
+        before = (gn_sum_step.launches, jtwj_accumulate.launches)
+        new, norm = gn_sum_step(parts, part_corr, pose, guess_t, cfg, work=work, **lane_args)
+        assert (gn_sum_step.launches, jtwj_accumulate.launches) == (before[0] + 1, before[1])
+        assert torch.equal(new.t, old_pose.t) and torch.equal(new.q, old_pose.q)
+        assert torch.equal(norm, old_norm) and float(norm[1]) == 0.25
+        assert torch.equal(work.hb[0::2], acc.hb[0::2])
+        pp, pn, _, _ = gn_sum_step_plain(parts, part_corr, pose, guess_t, cfg, **lane_args)
+        assert torch.allclose(new.t, pp.t, atol=1e-6, rtol=0)
+        assert torch.allclose(new.q, pp.q, atol=1e-6, rtol=0)
+        assert torch.allclose(norm, pn, rtol=1e-5, atol=1e-7)
+        H, b = jtwj_plain(*part_corr, quat_to_matrix(new.q), new.t,
+                          huber_delta=cfg.icp_huber_delta)
+        want = torch.cat([H.flatten(-2), b], -1)
+        bar = 4 * eps * (8192 // n) ** 0.5 * abs_terms_sum(part_corr, new, cfg.icp_huber_delta)
+        assert bool(((work.hb - want).abs() <= bar)[0::2].all())
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -2,8 +2,8 @@
 edge-sharded refine (parallel/mesh.py, parallel/batched.py with a mesh, the
 sp hooks of ops/icp.py and pipeline/odometry.py, parallel/pose_graph.py
 `make_refine_sharded`), against the JAX package on its 8-device CPU fabric
-(tests/conftest.py), and K2's epilogue entry point against its plain
-version.
+(tests/conftest.py), and K2's split-step entry points (`gn_sum_step` and
+K2e, `gn_epilogue`) against the launch sequence they replace.
 
 The port's ranks run on gloo CPU process groups: one `run_ranks` call per
 world size (2 and 4) runs every mode once (a module-scoped fixture), and
@@ -15,8 +15,14 @@ Bars:
 - sp (N = 2, 4): against the JAX sp step at the same N (the batched runner
   over a dp=1 x sp=N mesh), t within 1e-5 and q within 1e-6, iterations
   and matches equal; within 1e-5 m of the port's single run
-  (tests/test_parallel.py's bar); every rank bitwise equal; at N = 2
-  bitwise the one-process witness of the split sums (two threads);
+  (tests/test_parallel.py's bar); every rank bitwise equal; at N = 2 and
+  4 bitwise the one-process witness of the split sums (threads), since
+  every sum over the ranks is added in rank order; one K2e and four K2
+  launches (`jtwj_accumulate`, then `gn_sum_step`) per ICP round;
+- the split step's plain versions bitwise the sequence they replace (the
+  parts added in rank order, `gn_epilogue_plain`, `jtwj_plain`), and the
+  rank-order sum of the parts within 1e-5 of its scale of the JAX
+  `_normal_equations(..., axis_name)` under `shard_map` at the same N;
 - dp (dp = 2, and dp = 2 x sp = 2): against the JAX batched runner at the
   same mesh, t within 1e-5, q within 1e-6, iterations and matches equal,
   and the final keys, counts and origin equal; at sp = 1 each lane bitwise
@@ -46,7 +52,10 @@ from lidar_odometry_demo_tpu.parallel import mesh as jmesh
 from lidar_odometry_demo_tpu.parallel import pose_graph as jpg
 from lidar_odometry_demo_tpu_torch.config import TINY
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
-    GnWork, gn_epilogue, gn_epilogue_plain, gn_step_plain, jtwj_accumulate)
+    GnWork, add_prior, gn_epilogue, gn_epilogue_plain, gn_epilogue_sum_plain, gn_step_plain,
+    gn_sum_step, gn_sum_step_plain, jtwj_accumulate, jtwj_plain, prior_weight, split_record,
+    sum_in_rank_order)
+from lidar_odometry_demo_tpu_torch.ops import icp as ticp
 from lidar_odometry_demo_tpu_torch.ops import se3 as tse3
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as tvm
 from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
@@ -64,6 +73,7 @@ TIMEOUT = 300.0
 SEG_POSES, SEG_STRIDE, SEG_ITERATIONS = 64, 8, 10
 SEG_CLOSURES = [(56, 0), (32, 0)]  # separator poses (index % stride == 0)
 CHAIN_SYSTEM = ("diag", "off", "S_extra", "b")
+K2_ENTRY_POINTS = ("gn_step", "jtwj_accumulate", "gn_sum_step", "gn_epilogue")
 
 
 def _drives():
@@ -97,21 +107,39 @@ def _sharded_ranks(n, drives, graph, seg_graph):
     m.sp.psum(x)
     nxt = m.sp.ppermute_from([torch.tensor([m.rank]), torch.full((3,), float(m.rank))], 1)
     prv = m.sp.ppermute_from(torch.tensor([m.rank]), n - 1)
+    gathered = m.sp.gather_parts(torch.full((2, 3), float(m.rank + 1)), "test")
     out["mesh"] = dict(rank=m.rank, sp_index=m.sp_index, psum=x, next=nxt[0], next_f=nxt[1],
-                       prev=prv, backend=m.backend,
+                       prev=prv, gathered=gathered, backend=m.backend,
                        default_device=str(mesh_lib.make_mesh(n, 1).device))
 
-    # sp: one sequence, its matching points over the n ranks
-    step = todo.make_process_scan(TINY, sp_group=m.sp)
-    state = todo.init_state(TINY, "cpu")
-    diags = []
-    for r in drives[SP_DRIVE]:
-        state, d = step(state, port_scan(*r, TINY.max_raw_points, "cpu"))
-        diags.append(d)
+    # sp: one sequence, its matching points over the n ranks, with every
+    # call ICP makes to K2's entry points counted
+    calls = {name: 0 for name in K2_ENTRY_POINTS}
+    real = {name: getattr(ticp, name) for name in K2_ENTRY_POINTS}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in K2_ENTRY_POINTS:
+        setattr(ticp, name, counted(name))
+    m.stats.reset()
+    try:
+        step = todo.make_process_scan(TINY, sp_group=m.sp)
+        state = todo.init_state(TINY, "cpu")
+        diags = []
+        for r in drives[SP_DRIVE]:
+            state, d = step(state, port_scan(*r, TINY.max_raw_points, "cpu"))
+            diags.append(d)
+    finally:
+        for name in K2_ENTRY_POINTS:
+            setattr(ticp, name, real[name])
     d = todo.stack_diagnostics(diags)
     out["sp"] = dict(t=d.pose.t, q=d.pose.q, iters=d.icp_iterations, matches=d.num_matches,
                      keys=state.keyframe.keys, count=state.keyframe.count,
-                     stats=m.stats.as_dict())
+                     stats=m.stats.as_dict(), calls=calls)
 
     # dp: B = 4 lanes over dp = 2 (x sp = n / 2)
     dm = mesh_lib.make_mesh(2, n // 2, "cpu")
@@ -292,36 +320,90 @@ def test_sp_ranks_are_the_one_process_witness(ranks, drives):
         np.testing.assert_array_equal(sp[f], witness[f], err_msg=f)
 
 
-@pytest.mark.parametrize("order, want", [("rank", 1.0), ("pairwise", 0.0)])
-def test_thread_group_adds_in_its_order(order, want):
-    """chip_smoke.py's ThreadGroup (the sp witnesses' group) adds four
-    threads' tensors in its order: 1e8, 1, -1e8, 1 in float32 is
-    ((1e8 + 1) - 1e8) + 1 = 1 in rank order and (1e8 + 1) + (-1e8 + 1) = 0
-    pairwise; every thread gets the same sum. An unknown order is
-    refused."""
+def _chip_smoke():
     import importlib.util
     import pathlib
-    import threading
 
     path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    shared = smoke.ThreadGroup.shared(4, order)
+    return smoke
+
+
+def test_sp_ranks_at_four_are_the_one_process_witness(ranks, drives):
+    """sp at N = 4 over gloo ranks bitwise (poses, iterations, matches) the
+    same quarters in four threads of this process (`sp_witness`): past two
+    ranks too the ranks differ from the single run by the sum order alone,
+    since every sum over the group is added in rank order."""
+    scans = [port_scan(*r, TINY.max_raw_points, "cpu") for r in drives[SP_DRIVE]]
+    witness = _chip_smoke().sp_witness(TINY, scans, "cpu", 4)
+    sp = ranks[4][0]["sp"]
+    for f in ("t", "q", "iters", "matches"):
+        np.testing.assert_array_equal(sp[f], witness[f], err_msg=f)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sp_launch_schedule_under_a_group(ranks, n):
+    """Under a group every ICP round makes one call of K2e and four of the
+    K2 family (`jtwj_accumulate` at the round's pose, then `gn_sum_step`
+    for each later step), with four gathers of H and b and one of matches
+    and costs; the fused `gn_step` never runs."""
+    for out in ranks[n]:
+        sp = out["sp"]
+        rounds = sp["stats"]["by_kind"]["matches,cost"]
+        inner = TINY.icp_inner_iterations
+        assert rounds > 0
+        assert sp["calls"] == {"gn_step": 0, "jtwj_accumulate": rounds,
+                               "gn_sum_step": (inner - 1) * rounds, "gn_epilogue": rounds}
+        assert sp["stats"]["gathers"] == sp["stats"]["by_kind"]["H,b"] + rounds
+        assert "psum" not in sp["stats"]["by_kind"]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_mesh_gathers_parts_in_rank_order(ranks, n):
+    """`gather_parts` gives every rank every rank's tensor, in group order,
+    with its shape behind the group axis."""
+    want = np.stack([np.full((2, 3), r + 1, np.float32) for r in range(n)])
+    for out in ranks[n]:
+        np.testing.assert_array_equal(out["mesh"]["gathered"], want)
+
+
+def test_gather_parts_of_a_group_that_is_not_live():
+    """A group with no process group behind it gathers nothing: x comes back
+    as its one part, a copy."""
+    m = mesh_lib.make_mesh(1, 1, "cpu")
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    parts = m.sp.gather_parts(x)
+    assert parts.shape == (1, 2, 3) and torch.equal(parts[0], x)
+    x += 1
+    assert not torch.equal(parts[0], x)
+    assert m.stats.collectives == m.stats.gathers == 0
+
+
+def test_thread_group_gathers_in_rank_order():
+    """chip_smoke.py's ThreadGroup (the sp witness's group) gives every
+    thread the four threads' tensors in rank order, and their rank-order
+    sum is ((1e8 + 1) - 1e8) + 1 = 1 in float32 on every thread (pairwise
+    it would be 0): the sum's order is the path's, not the group's."""
+    import threading
+
+    smoke = _chip_smoke()
+    shared = smoke.ThreadGroup.shared(4)
     xs = [torch.tensor([v], dtype=torch.float32) for v in (1e8, 1.0, -1e8, 1.0)]
     outs = [None] * 4
 
     def rank(r):
-        outs[r] = smoke.ThreadGroup(r, shared).psum(xs[r].clone())
+        outs[r] = smoke.ThreadGroup(r, shared).gather_parts(xs[r].clone())
 
     threads = [threading.Thread(target=rank, args=(r,)) for r in range(4)]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=60)
-    assert [float(o) for o in outs] == [want] * 4
-    with pytest.raises(ValueError, match="order"):
-        smoke.ThreadGroup.shared(4, "reversed")
+    for o in outs:
+        assert torch.equal(o, torch.stack(xs))
+        assert float(sum_in_rank_order(o)) == 1.0
 
 
 def test_comm_stats_time_the_device_only_when_asked():
@@ -474,7 +556,7 @@ def test_shard_edges_refuses_unpadded_edges(seg_loop):
 
 
 # --------------------------------------------------------------------------
-# K2's epilogue entry point (the split step's second part)
+# K2's split-step entry points: gn_sum_step and K2e (gn_epilogue)
 # --------------------------------------------------------------------------
 
 def _corr_and_pose(rng, Q=300, lanes=()):
@@ -494,18 +576,27 @@ def _corr_and_pose(rng, Q=300, lanes=()):
     return corr, pose, guess_t
 
 
+def _rank_slices(corr, n):
+    """The n contiguous row slices of a correspondence set (the sp cut)."""
+    Q = corr.valid.shape[-1]
+    return [tvm.Correspondence(*(x[..., r * Q // n:(r + 1) * Q // n, :].contiguous()
+                                 for x in corr[:3]),
+                               corr.valid[..., r * Q // n:(r + 1) * Q // n].contiguous())
+            for r in range(n)]
+
+
 def test_epilogue_plain_is_gn_step_plain(rng):
-    """accumulate, then the epilogue on its H and b: gn_step_plain's pose
-    within 1e-6 and its step norm within 1e-6 relative (H's lower triangle
-    may differ from its upper one in the last ulp, and the epilogue reads
-    the upper), and exactly on a symmetric H."""
+    """accumulate, then the epilogue on its H and b (K2e on that one part):
+    gn_step_plain's pose within 1e-6 and its step norm within 1e-6 relative
+    (H's lower triangle may differ from its upper one in the last ulp, and
+    the epilogue reads the upper), and exactly on a symmetric H."""
     corr, pose, guess_t = _corr_and_pose(rng)
     want_pose, want_norm, H, b = gn_step_plain(corr, pose, guess_t, TINY)
     work = GnWork.empty(1, "cpu")
     jtwj_accumulate(corr, pose, huber_delta=TINY.icp_huber_delta, work=work)
     torch.testing.assert_close(work.H, H, rtol=0, atol=0)
     torch.testing.assert_close(work.b, b, rtol=0, atol=0)
-    got_pose, got_norm = gn_epilogue(work.H, work.b, pose, guess_t, TINY, work=work)
+    got_pose, got_norm = gn_epilogue(work.hb[None], pose, guess_t, TINY, work=work)
     np.testing.assert_allclose(got_pose.t.numpy(), want_pose.t.numpy(), atol=1e-6)
     np.testing.assert_allclose(got_pose.q.numpy(), want_pose.q.numpy(), atol=1e-6)
     np.testing.assert_allclose(float(got_norm), float(want_norm), rtol=1e-6)
@@ -522,7 +613,7 @@ def test_epilogue_plain_over_lanes_holds_an_inactive_lane(rng):
     jtwj_accumulate(corr, pose, huber_delta=TINY.icp_huber_delta, work=work)
     norm_in = torch.tensor([7.0, 8.0, 9.0])
     active = torch.tensor([True, False, True])
-    got_pose, got_norm = gn_epilogue(work.H, work.b, pose, guess_t, TINY, work=work,
+    got_pose, got_norm = gn_epilogue(work.hb[None], pose, guess_t, TINY, work=work,
                                      step_norm=norm_in, active=active)
     for b in range(3):
         one_pose, one_norm = gn_epilogue_plain(work.H[b], work.b[b],
@@ -535,11 +626,114 @@ def test_epilogue_plain_over_lanes_holds_an_inactive_lane(rng):
 
 def test_epilogue_wrapper_checks_its_inputs():
     meta = torch.device("meta")
-    H, b = torch.empty((2, 6, 6), device=meta), torch.empty((2, 6), device=meta)
+    parts = torch.empty((1, 2, 42), device=meta)
     pose = tse3.Pose(torch.empty((2, 3), device=meta), torch.empty((2, 4), device=meta))
     work = GnWork.empty(1, meta, (2,))
     with pytest.raises(ValueError, match="guess_t must have shape"):
-        gn_epilogue(H, b, pose, torch.empty((3,), device=meta), TINY, work=work)
+        gn_epilogue(parts, pose, torch.empty((3,), device=meta), TINY, work=work)
     with pytest.raises(ValueError, match="step_norm"):
-        gn_epilogue(H, b, pose, torch.empty((2, 3), device=meta), TINY, work=work,
+        gn_epilogue(parts, pose, torch.empty((2, 3), device=meta), TINY, work=work,
                     active=torch.ones(2, dtype=torch.bool, device=meta))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_gathered_step_plain_is_the_old_sequence(rng, n):
+    """On the parts of n fake ranks (the rows of a B = 3 set cut in n,
+    lane 1 inactive), `gn_sum_step_plain` and K2e's plain version
+    (`gn_epilogue_sum_plain`) are bitwise the sequence they replace: the
+    parts added in rank order, `gn_epilogue_plain` on the sums, then
+    `jtwj_plain` at the new pose; and the wrappers on CPU tensors give the
+    same, writing the new part into the workspace."""
+    corr, pose, guess_t = _corr_and_pose(rng, Q=400, lanes=(3,))
+    norm_in = torch.tensor([7.0, 8.0, 9.0])
+    active = torch.tensor([True, False, True])
+    lane_args = dict(step_norm=norm_in, active=active)
+    slices = _rank_slices(corr, n)
+    parts = []
+    for part_corr in slices:
+        w = GnWork.empty(1, "cpu", (3,))
+        jtwj_accumulate(part_corr, pose, huber_delta=TINY.icp_huber_delta, work=w)
+        parts.append(w.hb.clone())
+    parts = torch.stack(parts)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    want_pose, want_norm = gn_epilogue_plain(total[..., :36].reshape(3, 6, 6), total[..., 36:],
+                                             pose, guess_t, TINY, **lane_args)
+    assert torch.equal(want_pose.t[1], pose.t[1]) and float(want_norm[1]) == 8.0
+    got_pose, got_norm = gn_epilogue_sum_plain(parts, pose, guess_t, TINY, **lane_args)
+    for x, y in ((got_pose.t, want_pose.t), (got_pose.q, want_pose.q), (got_norm, want_norm)):
+        assert torch.equal(x, y)
+    e_pose, e_norm = gn_epilogue(parts, pose, guess_t, TINY, work=GnWork.empty(1, "cpu", (3,)),
+                                 **lane_args)
+    assert torch.equal(e_pose.t, want_pose.t) and torch.equal(e_pose.q, want_pose.q)
+    assert torch.equal(e_norm, want_norm)
+    R = tse3.quat_to_matrix(want_pose.q)
+    for part_corr in slices:
+        want_H, want_b = jtwj_plain(*part_corr, R, want_pose.t, huber_delta=TINY.icp_huber_delta)
+        s_pose, s_norm, H, b = gn_sum_step_plain(parts, part_corr, pose, guess_t, TINY,
+                                                 **lane_args)
+        for x, y in ((s_pose.t, want_pose.t), (s_pose.q, want_pose.q), (s_norm, want_norm),
+                     (H, want_H), (b, want_b)):
+            assert torch.equal(x, y)
+        work = GnWork.empty(1, "cpu", (3,))
+        w_pose, w_norm = gn_sum_step(parts, part_corr, pose, guess_t, TINY, work=work,
+                                     **lane_args)
+        assert torch.equal(w_pose.t, want_pose.t) and torch.equal(w_pose.q, want_pose.q)
+        assert torch.equal(w_norm, want_norm)
+        assert torch.equal(work.H, want_H) and torch.equal(work.b, want_b)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_rank_order_sum_matches_jax_sharded_normal_equations(rng, n):
+    """The ranks' parts of H and b (each rank's slice of the rows, K2 at the
+    pose), added in rank order with the translation prior after, within
+    1e-5 of their scale of the JAX `_normal_equations(..., axis_name)`
+    (ops/icp.py:143-145, a psum over the axis) under `shard_map` on n of
+    its CPU devices, on the same numpy inputs."""
+    from jax.sharding import PartitionSpec as P
+
+    from lidar_odometry_demo_tpu.ops import icp as jicp
+    from lidar_odometry_demo_tpu.ops import voxel_map as jvm
+
+    corr, pose, guess_t = _corr_and_pose(rng, Q=512)
+    arrays = [x.numpy() for x in corr]
+
+    def local(sl, po, pn, valid, t, q, g):
+        return jicp._normal_equations(jvm.Correspondence(sl, po, pn, valid), jse3.Pose(t, q), g,
+                                      JTINY, axis_name="sp")
+
+    f = jax.jit(jax.shard_map(local, mesh=jmesh.make_mesh(dp=1, sp=n),
+                              in_specs=(P("sp"),) * 4 + (P(),) * 3, out_specs=(P(), P()),
+                              check_vma=False))
+    jH, jb = f(*(jnp.asarray(a) for a in arrays), jnp.asarray(pose.t.numpy()),
+               jnp.asarray(pose.q.numpy()), jnp.asarray(guess_t.numpy()))
+    parts = []
+    for part_corr in _rank_slices(corr, n):
+        w = GnWork.empty(1, "cpu")
+        jtwj_accumulate(part_corr, pose, huber_delta=TINY.icp_huber_delta, work=w)
+        parts.append(w.hb.clone())
+    H, b = add_prior(*split_record(sum_in_rank_order(torch.stack(parts))), pose.t, guess_t,
+                     prior_weight(TINY))
+    for got, want in ((H, jH), (b, jb)):
+        scale = max(float(np.abs(np.asarray(want)).max()), 1.0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5 * scale, rtol=0)
+
+
+def test_sum_step_wrapper_checks_its_inputs():
+    """gn_sum_step refuses parts of the wrong lanes or width before it
+    launches; on meta tensors it raises."""
+    meta = torch.device("meta")
+    f32 = dict(dtype=torch.float32, device=meta)
+    corr = tvm.Correspondence(torch.empty((2, 8, 3), **f32), torch.empty((2, 8, 3), **f32),
+                              torch.empty((2, 8, 3), **f32),
+                              torch.empty((2, 8), dtype=torch.bool, device=meta))
+    pose = tse3.Pose(torch.empty((2, 3), **f32), torch.empty((2, 4), **f32))
+    work = GnWork.empty(1, meta, (2,))
+    guess_t = torch.empty((2, 3), **f32)
+    with pytest.raises(ValueError, match="parts must have shape"):
+        gn_sum_step(torch.empty((2, 42), **f32), corr, pose, guess_t, TINY, work=work)
+    with pytest.raises(ValueError, match=r"parts must have shape \(2, 2, 42\)"):
+        gn_sum_step(torch.empty((2, 2, 41), **f32), corr, pose, guess_t, TINY, work=work)
+    with pytest.raises(ValueError, match="CUDA"):
+        gn_sum_step(torch.empty((4, 2, 42), **f32), corr, pose, guess_t, TINY, work=work)
