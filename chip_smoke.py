@@ -136,7 +136,23 @@ Phases, each of which raises (non-zero exit) on failure:
    within 1e-4 m of the one-process refine_segment on the card, the ranks
    bitwise equal, one all-reduce per iteration. Last, a world of one on
    NCCL: psum and ppermute_from (to itself) through the mesh's group, each
-   timed on the device by CUDA events (CommStats) as well as on the host.
+   timed on the device by CUDA events (CommStats) as well as on the host;
+11. the captured step against the eager step. Phases 3, 5, 6, 7 and 8 ran
+   the entry points a user calls (`LidarOdometry`, the batched runner, the
+   CLI, `run_live`), which on the card replay the step from CUDA graphs
+   (pipeline/graphs.py) from the third scan on, their launch counts
+   counted per replay. Here the eager step (`make_process_scan`) runs the
+   40-scan bench drive from a fresh state on the main path and the parity
+   path, and the fleet's B = 8 drives; each must be bitwise the captured
+   runs of phases 3, 5 and 7 (poses, ICP iterations and matches of every
+   scan, every lane; final keys, counts and origin). Then, for both steps,
+   on the main path per scan and on the fleet per step of 8 (scans 20-29
+   timed by the host clock, 30-39 under torch.profiler, after 20 scans of
+   warm-up; profile_torch.measure): ms, synchronising calls (torch's sync
+   debug mode warnings plus the step's waits on its pinned host copies),
+   host launches (the CUDA runtime's launch, graph-launch and copy calls),
+   device operations, busy ms and idle share. It fails if the captured main
+   path makes more than 1 + (its ICP rounds) synchronising calls per scan.
 
 Prints a `kernels` JSON line (each kernel with its launches on every path,
 `launches_live` the live phase's, `launches_sharded_sp` / `_spatial` /
@@ -805,15 +821,15 @@ def run_reference_parity(bench: dict, device):
 
     cfg = reference_parity(OdometryConfig())
     # the NumPy oracle's own trajectory, which this path reproduces
-    odo, launches, iters, _, _ = drive_path("reference_parity path", cfg, bench, device,
-                                            ate_ref_max=0.0005)
+    odo, launches, iters, diags, _ = drive_path("reference_parity path", cfg, bench, device,
+                                                ate_ref_max=0.0005)
     # K3: one neighbourhood lookup per ICP round (the map re-searched at the
     # round's pose), one per map_update (every scan)
     want = int(iters.sum()) + len(iters)
     if launches["search_sorted"] != want:
         raise AssertionError(f"reference_parity path: K3 launches {launches['search_sorted']}"
                              f" != ICP rounds + map_update calls {want}")
-    return odo, launches
+    return odo, launches, diags
 
 
 # --------------------------------------------------------------------------
@@ -2776,6 +2792,113 @@ def run_sharded(bench: dict, main_diags: list, main_odo, fleet: dict, refine: di
     return results
 
 
+# --------------------------------------------------------------------------
+# phase 11: the captured step against the eager step
+# --------------------------------------------------------------------------
+
+def _eager_drive(cfg, state, scans):
+    """The eager step (make_process_scan, every operation launched from
+    Python) over `scans` from `state`: (final state, per-scan diagnostics)."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.pipeline.odometry import make_process_scan
+
+    step = make_process_scan(cfg)
+    diags = []
+    for scan in scans:
+        state, diag = step(state, scan)
+        diags.append(diag)
+    torch.cuda.synchronize()
+    return state, diags
+
+
+def _bitwise_drives(label: str, got: tuple, want: tuple) -> None:
+    """Two drives' (per-scan diagnostics, final state) bitwise: poses, ICP
+    iterations and matches of every scan (lane by lane), final keys, counts
+    and origin."""
+    import torch
+
+    (g_diags, g_state), (w_diags, w_state) = got, want
+    bad = [f"scan {i} {f}" for i, (g, w) in enumerate(zip(g_diags, w_diags))
+           for f, x, y in (("pose.t", g.pose.t, w.pose.t), ("pose.q", g.pose.q, w.pose.q),
+                           ("icp_iterations", g.icp_iterations, w.icp_iterations),
+                           ("num_matches", g.num_matches, w.num_matches))
+           if not torch.equal(x, y)]
+    bad += [f"final {f}" for f in ("keys", "count", "origin")
+            if not torch.equal(getattr(g_state.keyframe, f), getattr(w_state.keyframe, f))]
+    if bad or len(g_diags) != len(w_diags):
+        raise AssertionError(f"{label}: the captured step differs from the eager step: "
+                             f"{bad[:8]}")
+
+
+def run_capture_check(bench: dict, paths: dict, fleet: dict, device) -> dict:
+    """Phase 11: the eager step over the 40-scan bench drive from a fresh
+    state on the main path and the parity path, and over the fleet's B = 8
+    drives, each bitwise the captured step's run of phases 3, 5 and 7
+    (`paths`: name -> (diagnostics, final state), `fleet`: phase 7's
+    result), lane by lane. Then, per scan for both steps on the main path
+    and per step of 8 on the fleet, profile_torch.measure's host launches,
+    device operations, synchronising calls, idle share and ms."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig, reference_parity
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
+    from lidar_odometry_demo_tpu_torch.parallel import batched
+    from lidar_odometry_demo_tpu_torch.pipeline import odometry
+    from lidar_odometry_demo_tpu_torch.pipeline.graphs import CapturedStep
+    from profile_torch import measure
+
+    cfg = OdometryConfig()
+    scans = bench["scans"]
+    cfgs = dict(main=cfg, parity=reference_parity(cfg))
+    for name, got in paths.items():
+        c = cfgs[name]
+        _bitwise_drives(f"{name} path", got, _eager_drive(c, odometry.init_state(c, device),
+                                                         scans)[::-1])
+    S, B = fleet["scans"].xyz.shape[:2]
+    lanes = [LidarScan(*(x[s] for x in fleet["scans"])) for s in range(S)]
+    e_state, e_diags = _eager_drive(cfg, batched.init_batched_state(cfg, B, device), lanes)
+    f_diags = [odometry.StepDiagnostics(*(None if x is None else (
+        type(x)(*(y[s] for y in x)) if isinstance(x, tuple) else x[s]) for x in fleet["diags"]))
+        for s in range(S)]
+    _bitwise_drives(f"fleet path (B = {B})", (f_diags, fleet["state"]), (e_diags, e_state))
+    log(f"captured step: bitwise the eager step on the main path and the parity path "
+        f"(40 scans each) and on the fleet (B = {B}, every lane): poses, iterations, "
+        f"matches, final keys, counts and origin")
+
+    out = {}
+    for unit, B_, drive in (("scan", 0, scans), (f"step of {B}", B, lanes)):
+        for label in ("eager", "captured"):
+            step = odometry.make_process_scan(cfg) if label == "eager" else CapturedStep(cfg)
+            state = [batched.init_batched_state(cfg, B_, device) if B_
+                     else odometry.init_state(cfg, device)]
+
+            def run(scan, step=step, state=state):
+                state[0], diag = step(state[0], scan)
+                return diag.icp_iterations
+
+            for scan in drive[:20]:
+                run(scan)
+            m = measure(run, drive[20:40])
+            key = f"{'fleet' if B_ else 'main'} {label}"
+            out[key] = {k: v for k, v in m.items() if not k.endswith("events")}
+            log(f"phase 11, {key} step, per {unit} (scans 20-29 timed, 30-39 profiled): "
+                f"{m['ms']:.3f} ms, {m['syncs']:.2f} synchronising calls (sync debug "
+                f"warnings {m['sync_warnings']:.2f}, step waits {m['waits']:.2f}), "
+                f"{m['host_launches']:.1f} host launches "
+                f"{ {k: round(v, 1) for k, v in m['host_launch_calls'].items()} }, "
+                f"{m['device_ops']:.1f} device operations, busy {m['busy_ms']:.3f} ms, idle "
+                f"share {m['idle_share_timed']:.4f} against the timed ms "
+                f"({m['idle_share']:.4f} against {m['profiled_ms']:.3f} ms with the profiler), "
+                f"{m['rounds'] / m['scans']:.2f} ICP rounds")
+    rounds = out["main captured"]["rounds"] / out["main captured"]["scans"]
+    if out["main captured"]["syncs"] > 1 + rounds + 1e-9:
+        raise AssertionError(f"phase 11: the captured main path makes "
+                             f"{out['main captured']['syncs']} synchronising calls per scan, "
+                             f"more than 1 + its {rounds} ICP rounds")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2801,7 +2924,7 @@ def main() -> int:
     bench = bench_drive(device)
     odo, launches, main_diags, single_ms = run_main_path(bench, device)
     kernels.append(check_search(device, path_lookups(odo, bench["scans"][-1])))
-    parity_odo, parity = run_reference_parity(bench, device)
+    parity_odo, parity, parity_diags = run_reference_parity(bench, device)
     check_lookups("reference_parity path's map", path_lookups(parity_odo, bench["scans"][-1]))
     cli_launches = run_cli()
     fleet = run_fleet(bench, main_diags, odo, single_ms, device)
@@ -2812,6 +2935,8 @@ def main() -> int:
     run_live_cli(bench)
     refine = run_refine(main_diags, device)
     sharded = run_sharded(bench, main_diags, odo, fleet, refine, device)
+    run_capture_check(bench, dict(main=(main_diags, odo.state),
+                                  parity=(parity_diags, parity_odo.state)), fleet, device)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_reference_parity"] = parity[k["name"]]

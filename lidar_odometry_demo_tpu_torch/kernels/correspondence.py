@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from lidar_odometry_demo_tpu_torch.device import constant
 from lidar_odometry_demo_tpu_torch.kernels import _build
 from lidar_odometry_demo_tpu_torch.kernels._build import check_tensors, lane_map, lanes
 from lidar_odometry_demo_tpu_torch.ops.se3 import rot_pts
@@ -75,7 +76,7 @@ def match_rows_plain(q_world: torch.Tensor, rows_z, n_present: torch.Tensor, *,
     npres = n_present.reshape(QR)
     kf = torch.arange(K, dtype=torch.float32, device=dev)[None, :]
     ki = torch.arange(K, dtype=torch.int32, device=dev)[None, :]
-    md = torch.tensor(max_d2, dtype=torch.float32, device=dev)
+    md = constant(float(max_d2), torch.float32, dev)
     best_d_row = md.expand(QR).clone()
     best_zk_row = torch.zeros((QR,), dtype=torch.int32, device=dev)
     for s in range(3):
@@ -127,8 +128,7 @@ def match_correspondences_plain(query_local, query_valid, pose_t, pose_R, cand,
     c_idx = loc // (3 * K)
     zk_idx = loc % (3 * K)
     k_idx = zk_idx % K
-    valid = query_valid & (best_d2 < torch.tensor(max_d2, dtype=torch.float32,
-                                                  device=best_d2.device))
+    valid = query_valid & (best_d2 < constant(float(max_d2), torch.float32, best_d2.device))
     base_win = torch.gather(cand.base, 0, c_idx.long()[None, :])[0]
     best_slot = torch.clamp_max(base_win + zk_idx // K, C - 1)
     plane_normal = nrm_view[best_slot.long(), k_idx.long()]

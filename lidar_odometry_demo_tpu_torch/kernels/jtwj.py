@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from lidar_odometry_demo_tpu_torch.device import constant
 from lidar_odometry_demo_tpu_torch.kernels import _build
 from lidar_odometry_demo_tpu_torch.kernels._build import check_tensors, lane_map, lanes
 from lidar_odometry_demo_tpu_torch.ops import se3
@@ -112,8 +113,8 @@ def prior_weight(cfg) -> float:
 def add_prior(H, b, t, guess_t, prior_w: float):
     """H + diag(0, 0, 0, w, w, w), b + w (0, t - t_guess): the reference's
     translation prior on (t - t_guess)."""
-    prior_diag = torch.diag(torch.tensor([0.0, 0.0, 0.0, prior_w, prior_w, prior_w],
-                                         dtype=torch.float32, device=H.device))
+    w = float(prior_w)
+    prior_diag = torch.diag(constant((0.0, 0.0, 0.0, w, w, w), torch.float32, H.device))
     return H + prior_diag, b + prior_w * torch.cat([torch.zeros_like(t), t - guess_t])
 
 
@@ -237,6 +238,16 @@ class GnWork(NamedTuple):
         return GnWork(poses, *split_record(hb), slots, hb)
 
 
+def _write_slot(work: GnWork, slot: int, pose: se3.Pose, step_norm: torch.Tensor):
+    """A plain step's (pose, step_norm) written into slot `slot` of `work`,
+    as the kernel writes them; returns the slot's views."""
+    t, q, norm = work.slots[slot][0].t, work.slots[slot][0].q, work.slots[slot][1]
+    t.copy_(pose.t)
+    q.copy_(pose.q)
+    norm.copy_(step_norm)
+    return work.slots[slot]
+
+
 def _corr_specs(source_local, plane_origin, plane_normal, valid):
     """(lead, Q, check specs) of a correspondence set."""
     lead, Q = tuple(source_local.shape[:-2]), source_local.shape[-2]
@@ -326,12 +337,17 @@ def gn_step(corr, pose: se3.Pose, guess_t: torch.Tensor, cfg, *,
     (3,) float32; each may carry a leading lane axis B, and the pose may be
     an earlier step's view into `work`. With lanes, `active` (B,) bool and
     `step_norm` (B,) may be given: an inactive lane's pose and step norm
-    come back unchanged. On CUDA the new pose, the step norm, H and b are
-    views into `work` (slot `slot` for the pose), valid until the next step
-    that writes them. Returns (pose, step_norm, H, b) as `gn_step_plain`.
+    come back unchanged. Where `work` is given (always on CUDA) the new pose
+    and step norm are views into its slot `slot`, valid until the next step
+    that writes them, and on CUDA H and b are views into it too. Returns
+    (pose, step_norm, H, b) as `gn_step_plain`.
     """
     if corr.source_local.device.type == "cpu":
-        return gn_step_plain(corr, pose, guess_t, cfg, step_norm=step_norm, active=active)
+        new_pose, norm, H, b = gn_step_plain(corr, pose, guess_t, cfg, step_norm=step_norm,
+                                             active=active)
+        if work is None:
+            return new_pose, norm, H, b
+        return (*_write_slot(work, slot, new_pose, norm), H, b)
     lead, Q, specs = _corr_specs(*corr)
     if work is None:
         work = GnWork.empty(slot + 1, corr.source_local.device, lead)
@@ -388,8 +404,8 @@ def gn_sum_step(parts, corr, pose: se3.Pose, guess_t: torch.Tensor, cfg, *, work
     its correspondences) at the new pose, in one launch. `pose`, `guess_t`,
     `active` and `step_norm` as `gn_step` takes them.
 
-    On CUDA the new pose and step norm are written into slot `slot` of
-    `work` and returned as views, and the new part into `work.hb` (active
+    The new pose and step norm are written into slot `slot` of `work` and
+    returned as views, and the new part into `work.hb` (on CUDA active
     lanes only), where the next gather reads it. On CPU tensors
     `gn_sum_step_plain`, the part written for every lane. Returns (pose,
     step_norm)."""
@@ -398,7 +414,7 @@ def gn_sum_step(parts, corr, pose: se3.Pose, guess_t: torch.Tensor, cfg, *, work
                                                  step_norm=step_norm, active=active)
         work.H.copy_(H)
         work.b.copy_(b)
-        return new_pose, norm
+        return _write_slot(work, slot, new_pose, norm)
     lead, Q, specs = _corr_specs(*corr)
     check_tensors(*specs, *_step_specs(lead, pose, guess_t, active, step_norm),
                   *_parts_specs(parts, lead), *_work_specs(work, lead))
@@ -421,12 +437,13 @@ def gn_epilogue(parts, pose: se3.Pose, guess_t: torch.Tensor, cfg, *, work: GnWo
     the pose update of the step at `pose` (H's upper triangle is read), as
     `gn_sum_step` does before its accumulation. On the part of an
     epilogue-off launch alone (N = 1) it is the fused step's epilogue. On
-    CUDA one launch (a warp per lane), the new pose and step norm written
-    into slot `slot` of `work` and returned as views; on CPU tensors
-    `gn_epilogue_sum_plain`. Returns (pose, step_norm)."""
+    CUDA one launch (a warp per lane), on CPU tensors
+    `gn_epilogue_sum_plain`; either way the new pose and step norm are
+    written into slot `slot` of `work` and returned as views. Returns (pose,
+    step_norm)."""
     if parts.device.type == "cpu":
-        return gn_epilogue_sum_plain(parts, pose, guess_t, cfg, step_norm=step_norm,
-                                     active=active)
+        return _write_slot(work, slot, *gn_epilogue_sum_plain(
+            parts, pose, guess_t, cfg, step_norm=step_norm, active=active))
     lead = tuple(parts.shape[1:-1])
     check_tensors(*_parts_specs(parts, lead),
                   *_step_specs(lead, pose, guess_t, active, step_norm), *_work_specs(work, lead))

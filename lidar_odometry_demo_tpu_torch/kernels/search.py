@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lidar_odometry_demo_tpu_torch.device import true_div
+from lidar_odometry_demo_tpu_torch.device import constant, true_div
 from lidar_odometry_demo_tpu_torch.kernels import _build
 from lidar_odometry_demo_tpu_torch.kernels._build import check_tensors, lane_map, lanes
 from lidar_odometry_demo_tpu_torch.ops.se3 import rot_pts
@@ -131,7 +131,7 @@ def _column_keys(origin: torch.Tensor, q_world: torch.Tensor, query_valid: torch
     window test, its x / y (the map's centre where col_ok is false), the
     query's directory z, and the start key of the column's search."""
     rel = torch.trunc(true_div(q_world, voxel_size)).to(torch.int32) - origin  # (Q, 3)
-    off = torch.from_numpy(_COLUMN_OFFSETS).to(q_world.device)
+    off = constant(tuple(map(tuple, _COLUMN_OFFSETS.tolist())), torch.int32, q_world.device)
     rx = rel[None, :, 0] + off[:, 0, None] + _XOFF                 # (9, Q)
     ry = rel[None, :, 1] + off[:, 1, None] + _YOFF
     zd = (rel[:, 2] + _DIR_ZHALF).expand(9, -1)                    # directory z

@@ -60,13 +60,18 @@ def lane_offsets(idx: torch.Tensor, stride: int) -> torch.Tensor:
     return idx + lane.reshape(B, *([1] * (idx.dim() - 1)))
 
 
-def rows_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def rows_at(x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """Rows of x (..., N, *F) at integer indices idx (..., M): (..., M, *F),
-    the leading lane axis (if any) shared by both, in one row gather."""
+    the leading lane axis (if any) shared by both, in one row gather;
+    written into `out` (contiguous, that shape) where it is given."""
     if idx.dim() == 1:
-        return x[idx]
-    flat = x.reshape(-1, *x.shape[2:])[lane_offsets(idx, x.shape[1]).reshape(-1)]
-    return flat.reshape(*idx.shape, *x.shape[2:])
+        return x[idx] if out is None else torch.index_select(x, 0, idx, out=out)
+    rows = x.reshape(-1, *x.shape[2:])
+    flat_idx = lane_offsets(idx, x.shape[1]).reshape(-1)
+    if out is not None:
+        torch.index_select(rows, 0, flat_idx, out=out.view(-1, *x.shape[2:]))
+        return out
+    return rows[flat_idx].reshape(*idx.shape, *x.shape[2:])
 
 
 def scan_from_numpy(

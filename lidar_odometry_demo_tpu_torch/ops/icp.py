@@ -15,8 +15,14 @@
   current pose (the reference's findMatchingPairs per round: one launch of
   kernel K3's neighbourhood lookup); kernel K1 picks the winners either way.
 
-The outer loop is Python control flow: each round reads its exit condition
-from the device (one synchronisation per round).
+The outer loop is Python control flow around three parts, which a CUDA
+graph can capture (pipeline/graphs.py): `Align.begin` (the candidate gather
+and the loop's carry in buffers of its own), `Align.round` (one round,
+updating the carry in place and copying the round's exit flags to a host
+buffer without a synchronisation) and `Align.finish` (the best-pose exit).
+Between rounds the host waits for the flags and evaluates the JAX loop's
+condition on them (`RoundSchedule`): one synchronisation per round. No
+tensor is made from host data inside the three parts.
 
 Groups (the JAX package's `axis_name`): with a group of ranks (an sp group,
 each rank holding a slice of the queries, or a spatial group, each rank
@@ -35,10 +41,11 @@ Lanes: `align` also takes B independent problems at once (a leading lane
 axis on the map, the queries and the guess), as the JAX package's
 `while_loop` under `vmap` does: rounds go on while any lane's condition
 holds, and a finished lane is frozen (kernel K2 returns its pose and step
-norm unchanged; every other update is masked). Each lane's round counter
-and stall count live on the host, beside the one read per round, so a
-round costs no device work for them and the single-sequence path runs no
-extra operation.
+norm unchanged; every other update is masked) through the carry's (B,)
+`active` buffer, which the host rewrites from its schedule before each
+round. Each lane's round counter for the schedule and its stall count live
+on the host beside the one read per round; the iteration counts the result
+reports are counted on the device (`IcpLoop.iters`).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from typing import NamedTuple
 import torch
 
 from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+from lidar_odometry_demo_tpu_torch.device import HostFlags, constant
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
     GnWork, gn_epilogue, gn_step, gn_sum_step, jtwj_accumulate, sum_in_rank_order)
 from lidar_odometry_demo_tpu_torch.kernels.search import query_world
@@ -62,6 +70,63 @@ class IcpResult(NamedTuple):
     num_matches: torch.Tensor  # correspondences of the returned pose's round
 
 
+class IcpLoop(NamedTuple):
+    """One scan's ICP loop: the carry, which every round updates in place,
+    and the round's inputs and workspaces. The pose and step norm being
+    iterated are K2's last slot (`pose`, `step_norm`), where each round's
+    last step writes them."""
+
+    query_xyz: torch.Tensor     # (..., Q, 3) local
+    query_valid: torch.Tensor   # (..., Q), this rank's queries where owner_fn is given
+    guess: se3.Pose
+    cand: vm.CandidateSet       # gathered at the guess, or rewritten every round
+    nrm_view: torch.Tensor      # the map's normal view, derived once per scan
+    match_out: vm.Match         # K1's outputs, rewritten every round
+    work: GnWork                # K2's outputs
+    best_pose: se3.Pose
+    best_cost: torch.Tensor
+    best_matches: torch.Tensor
+    n_matches: torch.Tensor     # the last round's matches (a frozen lane's last)
+    iters: torch.Tensor         # rounds run, per lane (int32)
+    active: torch.Tensor | None  # (B,) over lanes: the lanes this round runs
+    go_host: torch.Tensor | None  # (B,) host staging of `active`
+    flags: HostFlags            # the round's (2, lanes) exit flags, on the host
+
+    @property
+    def pose(self) -> se3.Pose:
+        return self.work.slots[-1][0]
+
+    @property
+    def step_norm(self) -> torch.Tensor:
+        return self.work.slots[-1][1]
+
+
+class RoundSchedule:
+    """The JAX loop's condition, per lane, on the host (the loop's carry:
+    rounds run, rounds without improvement, the last round's convergence
+    flag), advanced from each round's flags."""
+
+    def __init__(self, cfg: OdometryConfig, n_lanes: int):
+        self.cfg = cfg
+        self.i, self.stall = [0] * n_lanes, [0] * n_lanes
+        self.not_converged = [True] * n_lanes
+
+    def go(self) -> list[bool]:
+        cfg = self.cfg
+        return [i < cfg.icp_max_outer_iterations
+                and (nc or i <= cfg.icp_min_outer_iterations - 1)
+                and stall < cfg.icp_stall_exit_rounds
+                for i, stall, nc in zip(self.i, self.stall, self.not_converged)]
+
+    def advance(self, go: list[bool], flags: list) -> None:
+        """flags: [step norm >= tolerance, improved], each per lane."""
+        for b, running in enumerate(go):
+            if running:
+                self.i[b] += 1
+                self.not_converged[b] = flags[0][b]
+                self.stall[b] = 0 if flags[1][b] else self.stall[b] + 1
+
+
 def _gn_steps(corr: vm.Correspondence, pose: se3.Pose, guess_t: torch.Tensor,
               cfg: OdometryConfig, work: GnWork | None = None,
               step_norm: torch.Tensor | None = None, active: torch.Tensor | None = None,
@@ -69,14 +134,15 @@ def _gn_steps(corr: vm.Correspondence, pose: se3.Pose, guess_t: torch.Tensor,
     """cfg.icp_inner_iterations Gauss-Newton steps on a fixed
     correspondence set (cloud_matcher.cpp:111,156-158): one K2 launch each
     on CUDA, with no tensor operation between them; step k writes slot k of
-    `work` (allocated here if the caller has none). Over a lane axis, a
-    lane where `active` is false keeps `pose` and `step_norm`. With a
-    `group` of more than one rank each step is split around the sum of the
-    ranks' H and b: this rank's part at the round's pose
-    (`jtwj_accumulate`), then per step the group's gather of the parts and
-    one launch that adds them in rank order, takes the step and accumulates
-    the next part at the new pose (`gn_sum_step`); the last gather's parts
-    go to `gn_epilogue`. Per round: n K2 launches, n gathers and one K2e."""
+    `work` (allocated here if the caller has none), so the last step's pose
+    and step norm are the views `work.slots[-1]`. Over a lane axis, a lane
+    where `active` is false keeps `pose` and `step_norm`. With a `group` of
+    more than one rank each step is split around the sum of the ranks' H
+    and b: this rank's part at the round's pose (`jtwj_accumulate`), then
+    per step the group's gather of the parts and one launch that adds them
+    in rank order, takes the step and accumulates the next part at the new
+    pose (`gn_sum_step`); the last gather's parts go to `gn_epilogue`. Per
+    round: n K2 launches, n gathers and one K2e."""
     n = cfg.icp_inner_iterations
     if work is None:
         work = GnWork.empty(n, pose.t.device, tuple(guess_t.shape[:-1]))
@@ -94,13 +160,17 @@ def _gn_steps(corr: vm.Correspondence, pose: se3.Pose, guess_t: torch.Tensor,
                        slot=n - 1, step_norm=step_norm, active=active)
 
 
-def make_align(cfg: OdometryConfig, group=None, owner_fn=None):
+class Align:
     """align(map, query_xyz (Q, 3) local, query_valid (Q,), guess)
     -> IcpResult, mirroring CloudMatcher::align (cloud_matcher.cpp:105-178):
     with cfg.icp_cached_candidates the candidates are gathered once at the
     guess pose; without it every round re-searches the map at its pose.
     Every argument may carry a leading lane axis B; the result then has it
     too (iterations, step norm and matches per lane).
+
+    Calling it runs `begin`, then `round` until the schedule stops
+    (`run_rounds`), then `finish`; pipeline/graphs.py captures the three
+    parts as CUDA graphs and replays them in the same order.
 
     `group` (parallel/mesh.py Group): the ranks that share this problem,
     each with its own queries (and, under a column-sharded map, its own
@@ -109,103 +179,151 @@ def make_align(cfg: OdometryConfig, group=None, owner_fn=None):
     bool mask` restricts a rank to the queries it owns (parallel/spatial.py):
     at the guess pose for the cached candidates, at the round's pose on the
     exact path, so the queries stay partitioned at every pose."""
-    voxel_size = cfg.keyframe_voxel_size
-    max_dist = cfg.icp_max_correspondence_distance
-    delta = cfg.icp_huber_delta
 
-    def align(m: vm.VoxelMap, query_xyz: torch.Tensor, query_valid: torch.Tensor,
-              guess: se3.Pose) -> IcpResult:
+    def __init__(self, cfg: OdometryConfig, group=None, owner_fn=None):
+        self.cfg, self.group, self.owner_fn = cfg, group, owner_fn
+        self._host: dict = {}
+
+    def host_buffers(self, lead: tuple, device):
+        """(exit flags, active staging) on the host for the lanes `lead`,
+        made once (outside any capture) and reused by every scan."""
+        key = (lead, torch.device(device))
+        if key not in self._host:
+            n_lanes = lead[0] if lead else 1
+            go = None
+            if lead:
+                go = torch.ones(lead, dtype=torch.bool,
+                                pin_memory=torch.device(device).type == "cuda")
+            self._host[key] = (HostFlags((2, n_lanes), torch.bool, device), go)
+        return self._host[key]
+
+    def begin(self, m: vm.VoxelMap, query_xyz: torch.Tensor, query_valid: torch.Tensor,
+              guess: se3.Pose) -> IcpLoop:
+        """The loop's start: the candidates at the guess (cached path) and
+        the carry, in buffers of its own."""
+        cfg = self.cfg
         dev = query_xyz.device
         f32 = dict(dtype=torch.float32, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
         lead = tuple(query_xyz.shape[:-2])
         Q = query_xyz.shape[-2]
         if cfg.icp_cached_candidates:
             Rg = se3.quat_to_matrix(guess.q)
-            if owner_fn is not None:  # the queries this rank owns at the guess
-                query_valid = query_valid & owner_fn(m, query_world(query_xyz, Rg, guess.t))
+            if self.owner_fn is not None:  # the queries this rank owns at the guess
+                query_valid = query_valid & self.owner_fn(
+                    m, query_world(query_xyz, Rg, guess.t))
             cand = vm.gather_candidates(m, query_xyz, query_valid, guess.t, Rg,
-                                        voxel_size=voxel_size)
+                                        voxel_size=cfg.keyframe_voxel_size)
         else:  # K3's candidates, rewritten every round
-            cand_out = vm.CandidateSet.empty(Q, vm._lanes(m.max_points)[0], dev, lead)
-        nrm_view = m.nrm  # derived once per scan, not once per round
-        # K1's and K2's outputs, allocated once and rewritten every round
-        match_out = vm.Match.empty(Q, dev, lead)
-        gn_work = GnWork.empty(cfg.icp_inner_iterations, dev, lead)
-        tol = torch.tensor(cfg.icp_convergence_step_norm, **f32)
+            cand = vm.CandidateSet.empty(Q, vm._lanes(m.max_points)[0], dev, lead)
+        work = GnWork.empty(cfg.icp_inner_iterations, dev, lead)
+        pose, step_norm = work.slots[-1]
+        pose.t.copy_(guess.t)
+        pose.q.copy_(guess.q)
+        step_norm.fill_(1e9)
+        flags, go_host = self.host_buffers(lead, dev)
+        return IcpLoop(
+            query_xyz=query_xyz, query_valid=query_valid, guess=guess, cand=cand,
+            nrm_view=m.nrm, match_out=vm.Match.empty(Q, dev, lead), work=work,
+            best_pose=se3.Pose(guess.t.clone(), guess.q.clone()),
+            best_cost=torch.full(lead, 1e9, **f32), best_matches=torch.zeros(lead, **i32),
+            n_matches=torch.zeros(lead, **i32), iters=torch.zeros(lead, **i32),
+            active=torch.ones(lead, dtype=torch.bool, device=dev) if lead else None,
+            go_host=go_host, flags=flags)
 
-        pose = guess
-        step_norm = torch.full(lead, 1e9, **f32)
-        n_matches = torch.zeros(lead, dtype=torch.int32, device=dev)
-        best_cost = torch.full(lead, 1e9, **f32)
-        best_pose = guess
-        best_matches = n_matches
-        # per lane, on the host: rounds run, rounds without improvement, and
-        # the last round's convergence flag (the JAX loop's carry)
-        n_lanes = lead[0] if lead else 1
-        i, stall, not_converged = [0] * n_lanes, [0] * n_lanes, [True] * n_lanes
+    def round(self, m: vm.VoxelMap, loop: IcpLoop) -> None:
+        """One correspondence round on the lanes `loop.active` holds: the
+        round's cost, the best-pose bookkeeping and the Gauss-Newton steps,
+        every result written into the carry; then the exit flags (step norm
+        >= tolerance, improved) copied to `loop.flags` (not waited for)."""
+        cfg, group = self.cfg, self.group
+        delta = cfg.icp_huber_delta
+        pose, step_norm = loop.pose, loop.step_norm
+        R = se3.quat_to_matrix(pose.q)
+        # K2's pose is a view into its workspace: over lanes, at a stride
+        # K1 and K3 do not take (one sequence's is contiguous already)
+        t_now = pose.t.contiguous()
+        if cfg.icp_cached_candidates:
+            corr = vm.match_candidates(m, loop.cand, loop.query_xyz, loop.query_valid, t_now,
+                                       R, max_distance=cfg.icp_max_correspondence_distance,
+                                       nrm_view=loop.nrm_view, out=loop.match_out)
+        else:  # re-search the table at the current pose every round
+            round_valid = loop.query_valid if self.owner_fn is None else (
+                loop.query_valid & self.owner_fn(m, query_world(loop.query_xyz, R, t_now)))
+            corr = vm.find_correspondences(m, loop.query_xyz, round_valid, t_now, R,
+                                           voxel_size=cfg.keyframe_voxel_size,
+                                           max_distance=cfg.icp_max_correspondence_distance,
+                                           nrm_view=loop.nrm_view, out=loop.match_out,
+                                           cand_out=loop.cand)
+        round_matches = torch.sum(corr.valid, dim=-1, dtype=torch.int32)
+        # robust mean cost of this pose on its own correspondence set
+        p_w = se3.rot_pts(corr.source_local, R) + pose.t[..., None, :]
+        r = torch.sum((p_w - corr.plane_origin) * corr.plane_normal, dim=-1)
+        absr = torch.abs(r)
+        hub = torch.where(absr <= delta, 0.5 * r * r, delta * (absr - 0.5 * delta))
+        cost_sum = torch.sum(torch.where(corr.valid, hub, 0.0), dim=-1)
+        if group is not None and group.size > 1:  # one gather of both
+            sums = sum_in_rank_order(group.gather_parts(
+                torch.stack([cost_sum, round_matches.to(torch.float32)]), "matches,cost"))
+            cost_sum, round_matches = sums[0], sums[1].to(torch.int32)
+        cost = cost_sum / torch.clamp_min(round_matches.to(torch.float32), 1.0)
+        improved = cost < loop.best_cost * (1.0 - cfg.icp_stall_rel_tolerance)
+        active = loop.active
+        if active is None:
+            loop.n_matches.copy_(round_matches)
+            loop.iters.add_(1)
+        else:  # a finished lane's carry stays as it is
+            improved = improved & active
+            torch.where(active, round_matches, loop.n_matches, out=loop.n_matches)
+            loop.iters.add_(active)
+        torch.where(improved[..., None], pose.t, loop.best_pose.t, out=loop.best_pose.t)
+        torch.where(improved[..., None], pose.q, loop.best_pose.q, out=loop.best_pose.q)
+        torch.where(improved, round_matches, loop.best_matches, out=loop.best_matches)
+        torch.where(improved, cost, loop.best_cost, out=loop.best_cost)
+        _, step_norm = _gn_steps(corr, pose, loop.guess.t, cfg, loop.work, step_norm, active,
+                                 group)
+        tol = constant(float(cfg.icp_convergence_step_norm), torch.float32, step_norm.device)
+        loop.flags.write(torch.stack([step_norm >= tol, improved]))
+
+    def run_rounds(self, loop: IcpLoop, round_fn) -> None:
+        """Rounds until every lane's condition ends: before each, the
+        lanes that run are written to `loop.active` (over lanes, a copy from
+        pinned memory); `round_fn()` enqueues the round (`round`, or the
+        replay of its graph); then the host waits for its flags."""
+        schedule = RoundSchedule(self.cfg, loop.flags.host.shape[1])
         while True:
-            go = [i[b] < cfg.icp_max_outer_iterations
-                  and (not_converged[b] or i[b] <= cfg.icp_min_outer_iterations - 1)
-                  and stall[b] < cfg.icp_stall_exit_rounds for b in range(n_lanes)]
+            go = schedule.go()
             if not any(go):
-                break
-            # a finished lane's carry stays as it is (None: every lane runs)
-            active = None if all(go) else torch.tensor(go, device=dev)
-            R = se3.quat_to_matrix(pose.q)
-            # K2's pose is a view into its workspace: over lanes, at a stride
-            # K1 and K3 do not take (one sequence's is contiguous already)
-            t_now = pose.t.contiguous()
-            if cfg.icp_cached_candidates:
-                corr = vm.match_candidates(m, cand, query_xyz, query_valid, t_now, R,
-                                           max_distance=max_dist, nrm_view=nrm_view,
-                                           out=match_out)
-            else:  # re-search the table at the current pose every round
-                round_valid = query_valid if owner_fn is None else (
-                    query_valid & owner_fn(m, query_world(query_xyz, R, t_now)))
-                corr = vm.find_correspondences(m, query_xyz, round_valid, t_now, R,
-                                               voxel_size=voxel_size, max_distance=max_dist,
-                                               nrm_view=nrm_view, out=match_out,
-                                               cand_out=cand_out)
-            round_matches = torch.sum(corr.valid, dim=-1, dtype=torch.int32)
-            # robust mean cost of this pose on its own correspondence set
-            p_w = se3.rot_pts(corr.source_local, R) + pose.t[..., None, :]
-            r = torch.sum((p_w - corr.plane_origin) * corr.plane_normal, dim=-1)
-            absr = torch.abs(r)
-            hub = torch.where(absr <= delta, 0.5 * r * r, delta * (absr - 0.5 * delta))
-            cost_sum = torch.sum(torch.where(corr.valid, hub, 0.0), dim=-1)
-            if group is not None and group.size > 1:  # one gather of both
-                sums = sum_in_rank_order(group.gather_parts(
-                    torch.stack([cost_sum, round_matches.to(torch.float32)]), "matches,cost"))
-                cost_sum, round_matches = sums[0], sums[1].to(torch.int32)
-            cost = cost_sum / torch.clamp_min(round_matches.to(torch.float32), 1.0)
-            improved = cost < best_cost * (1.0 - cfg.icp_stall_rel_tolerance)
-            if active is None:
-                n_matches = round_matches
-            else:
-                improved = improved & active
-                n_matches = torch.where(active, round_matches, n_matches)
-            best_pose = se3.pose_where(improved, pose, best_pose)
-            best_matches = torch.where(improved, round_matches, best_matches)
-            best_cost = torch.where(improved, cost, best_cost)
-            pose, step_norm = _gn_steps(corr, pose, guess.t, cfg, gn_work, step_norm, active,
-                                        group)
-            # the round's one device read: every lane's exit conditions
-            flags = torch.stack([step_norm >= tol, improved]).reshape(2, n_lanes).tolist()
-            for b in range(n_lanes):
-                if go[b]:
-                    i[b] += 1
-                    not_converged[b] = flags[0][b]
-                    stall[b] = 0 if flags[1][b] else stall[b] + 1
+                return
+            if loop.active is not None:
+                loop.go_host.copy_(torch.tensor(go))
+                loop.active.copy_(loop.go_host, non_blocking=True)
+            round_fn()
+            loop.flags.mark()
+            schedule.advance(go, loop.flags.read())
 
-        if cfg.icp_best_pose_exit:
+    def finish(self, loop: IcpLoop) -> IcpResult:
+        """The best-pose exit and the normalised pose."""
+        pose, step_norm, n_matches = loop.pose, loop.step_norm, loop.n_matches
+        if self.cfg.icp_best_pose_exit:
+            tol = constant(float(self.cfg.icp_convergence_step_norm), torch.float32,
+                           step_norm.device)
             converged = step_norm < tol
-            pose = se3.pose_where(converged, pose, best_pose)
-            n_matches = torch.where(converged, n_matches, best_matches)
+            pose = se3.pose_where(converged, pose, loop.best_pose)
+            n_matches = torch.where(converged, n_matches, loop.best_matches)
         pose = se3.Pose(pose.t, se3.quat_normalize(pose.q))
-        iters = torch.tensor(i if lead else i[0], dtype=torch.int32, device=dev)
-        return IcpResult(pose, iters, step_norm, n_matches)
+        return IcpResult(pose, loop.iters, step_norm, n_matches)
 
-    return align
+    def __call__(self, m: vm.VoxelMap, query_xyz: torch.Tensor, query_valid: torch.Tensor,
+                 guess: se3.Pose) -> IcpResult:
+        loop = self.begin(m, query_xyz, query_valid, guess)
+        self.run_rounds(loop, lambda: self.round(m, loop))
+        return self.finish(loop)
+
+
+def make_align(cfg: OdometryConfig, group=None, owner_fn=None) -> Align:
+    """The ICP alignment of `cfg` (see Align)."""
+    return Align(cfg, group=group, owner_fn=owner_fn)
 
 
 def align(m: vm.VoxelMap, query_xyz: torch.Tensor, query_valid: torch.Tensor,
@@ -214,10 +332,10 @@ def align(m: vm.VoxelMap, query_xyz: torch.Tensor, query_valid: torch.Tensor,
     return _cached_align(cfg)(m, query_xyz, query_valid, guess)
 
 
-_ALIGN_CACHE: dict[OdometryConfig, object] = {}
+_ALIGN_CACHE: dict[OdometryConfig, Align] = {}
 
 
-def _cached_align(cfg: OdometryConfig):
+def _cached_align(cfg: OdometryConfig) -> Align:
     fn = _ALIGN_CACHE.get(cfg)
     if fn is None:
         fn = make_align(cfg)

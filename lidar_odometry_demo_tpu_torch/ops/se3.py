@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from lidar_odometry_demo_tpu_torch.device import constant
+
 
 class Pose(NamedTuple):
     """SE(3) pose: world_point = R(q) @ local_point + t."""
@@ -23,8 +25,9 @@ class Pose(NamedTuple):
 
     @staticmethod
     def identity(device) -> "Pose":
-        return Pose(torch.zeros(3, device=device),
-                    torch.tensor([1.0, 0.0, 0.0, 0.0], device=device))
+        """The identity, as shared constants (device.constant): read-only."""
+        return Pose(constant((0.0, 0.0, 0.0), torch.float32, device),
+                    constant((1.0, 0.0, 0.0, 0.0), torch.float32, device))
 
 
 def pose_where(pred: torch.Tensor, a: Pose, b: Pose) -> Pose:
@@ -76,7 +79,7 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return q * constant((1.0, -1.0, -1.0, -1.0), q.dtype, q.device)
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

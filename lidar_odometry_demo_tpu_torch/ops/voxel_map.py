@@ -324,8 +324,21 @@ def find_correspondences(m: VoxelMap, query_local: torch.Tensor,
 # gather (reference radiusCleanup + addCloud, voxel_grid.h:236-246, 77-93)
 # ---------------------------------------------------------------------------
 
+def _put(flat: torch.Tensor, idx: torch.Tensor, vals, mask: torch.Tensor) -> None:
+    """flat[idx[mask]] = vals[mask] (idx into flat[:-1], unique where mask
+    holds), in shapes that do not depend on the data: every entry is
+    written, the masked-out ones to flat's last element, a spare whose
+    value is left undefined. No host read, so a CUDA graph can capture it."""
+    at = torch.where(mask, idx, flat.numel() - 1).reshape(-1)
+    if isinstance(vals, torch.Tensor):
+        flat.index_put_((at,), vals.reshape(-1))
+    else:
+        flat.index_fill_(0, at, vals)
+
+
 def _update_impl(m: VoxelMap, new: PointsWithNormals, new_origin: torch.Tensor,
-                 evict: torch.Tensor | None, voxel_size: float) -> VoxelMap:
+                 evict: torch.Tensor | None, voxel_size: float,
+                 tab_out: torch.Tensor | None = None) -> VoxelMap:
     """Shared evict + insert body.
 
     1. Keys shift uniformly to the new origin; evicted voxels are
@@ -337,7 +350,8 @@ def _update_impl(m: VoxelMap, new: PointsWithNormals, new_origin: torch.Tensor,
        f32 count lane): found voxels append at lanes [count, K), fresh
        voxels build a row at C + leader.
     3. One stable sort of the (C + N_in) keys, one C-row gather: the C
-       smallest keys win at overflow.
+       smallest keys win at overflow, gathered into `tab_out` where given
+       (it may be m.tab itself: step 2 has copied the old rows out).
     """
     C, K = m.capacity, m.max_points
     RW, MB, W = _lanes(K)
@@ -369,13 +383,17 @@ def _update_impl(m: VoxelMap, new: PointsWithNormals, new_origin: torch.Tensor,
     pos_c, found = group_lookup(keys1, skeys)
 
     # rows re-touched by an incoming group (tombstone reuse); targets unique
-    touched = torch.zeros(m.keys.shape, dtype=torch.bool, device=dev)
-    touched.view(-1)[lane_offsets(pos_c.long(), C)[leader & found]] = True
+    touched_flat = torch.zeros(m.keys.numel() + 1, dtype=torch.bool, device=dev)
+    _put(touched_flat, lane_offsets(pos_c.long(), C), True, leader & found)
+    touched = touched_flat[:-1].view(m.keys.shape)
     live = (occupied & ~evicted) | touched
     keys2 = torch.where(live, keys1, EMPTY_KEY).to(torch.int32)
     count1 = torch.where(touched & evicted, 0, count1)
 
-    tab_ext = torch.cat([m.tab, m.tab.new_zeros((*lead, n, W))], dim=-2)
+    tab_flat = m.tab.new_empty(m.keys.numel() // C * (C + n) * W + 1)
+    tab_ext = tab_flat[:-1].view(*lead, C + n, W)
+    tab_ext[..., :C, :].copy_(m.tab)
+    tab_ext[..., C:, :].zero_()
 
     # per-element write positions, broadcast from each group's leader
     start_l = start.long()
@@ -413,19 +431,22 @@ def _update_impl(m: VoxelMap, new: PointsWithNormals, new_origin: torch.Tensor,
         (ext_row[..., None], torch.full((*ext_row.shape, 1), 3 * K, **i32), cnt_bits,
          leader[..., None]),
     )
-    flat_idx = torch.cat([(g[0] * W + g[1])[g[3]] for g in groups])
-    vals = torch.cat([g[2][g[3]] for g in groups])
-    tab_ext.view(-1)[flat_idx] = vals
+    _put(tab_flat, torch.cat([(g[0] * W + g[1]).reshape(-1) for g in groups]),
+         torch.cat([g[2].reshape(-1) for g in groups]),
+         torch.cat([g[3].reshape(-1) for g in groups]))
 
     # post-update key / count vectors over the extended rows
     fresh_keys = torch.where(leader & ~found & keep, skeys, EMPTY_KEY).to(torch.int32)
     keys_ext = torch.cat([keys2, fresh_keys], dim=-1)
-    count_ext = torch.cat([count1, count1.new_zeros((*lead, n))], dim=-1)
-    count_ext.view(-1)[ext_row[leader]] = new_count[leader]
+    count_flat = count1.new_empty(m.keys.numel() // C * (C + n) + 1)
+    count_ext = count_flat[:-1].view(*lead, C + n)
+    count_ext[..., :C].copy_(count1)
+    count_ext[..., C:].zero_()
+    _put(count_flat, ext_row, new_count, leader)
 
     sorted_keys, order = torch.sort(keys_ext, dim=-1, stable=True)
     oc = order[..., :C]
-    return VoxelMap(tab=rows_at(tab_ext, oc), keys=sorted_keys[..., :C].contiguous(),
+    return VoxelMap(tab=rows_at(tab_ext, oc, out=tab_out), keys=sorted_keys[..., :C].contiguous(),
                     count=torch.gather(count_ext, -1, oc), origin=new_origin, kdim=m.kdim)
 
 
@@ -465,9 +486,15 @@ def radius_cleanup(m: VoxelMap, center: torch.Tensor, *, radius: float,
 
 
 def map_update(m: VoxelMap, new: PointsWithNormals, center: torch.Tensor, *,
-               voxel_size: float, radius: float, origin_quantum: int = 1) -> VoxelMap:
+               voxel_size: float, radius: float, origin_quantum: int = 1,
+               tab_out: torch.Tensor | None = None) -> VoxelMap:
     """radius_cleanup then map_insert in one sort pass (the reference's
     per-scan sequence, lidar_odometry.cpp:67-70).
+
+    tab_out: the buffer the new table is gathered into, m.tab itself
+    allowed (the captured step's state buffer, pipeline/graphs.py, which
+    then needs no copy of the 64 MB table per lane and scan); a new tensor
+    where None.
 
     origin_quantum > 1 floors the rebased origin's x and y to multiples of
     it. The column-sharded map (parallel/spatial.py) passes its shard count
@@ -479,7 +506,7 @@ def map_update(m: VoxelMap, new: PointsWithNormals, center: torch.Tensor, *,
         xy = torch.div(new_origin[..., :2], origin_quantum, rounding_mode="floor")
         new_origin = torch.cat([xy * origin_quantum, new_origin[..., 2:]], dim=-1)
     evict = _evict_mask(m, center, new_origin, radius)
-    return _update_impl(m, new, new_origin, evict, voxel_size)
+    return _update_impl(m, new, new_origin, evict, voxel_size, tab_out)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ independent sequences together. The JAX package `vmap`s its per-scan step
 and shards the batch over a (dp, sp) device mesh; here the per-scan step
 itself takes the lane axis (pipeline/odometry.py): every tensor carries a
 leading B and every kernel launch serves all B lanes, so one step of B
-scans issues the launches of one scan.
+scans issues the launches of one scan. On the card that step is captured
+as CUDA graphs (pipeline/graphs.py), as the JAX package jits its batched
+step, except under an sp group, whose rounds hold collectives.
 
 With a mesh (parallel/mesh.py), each rank steps its dp index's B / dp
 lanes on that lane axis (`Mesh.lanes`), and with sp > 1 the ranks of its sp
@@ -27,6 +29,7 @@ import numpy as np
 from lidar_odometry_demo_tpu_torch.config import OdometryConfig
 from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
 from lidar_odometry_demo_tpu_torch.pipeline import odometry
+from lidar_odometry_demo_tpu_torch.pipeline.graphs import CapturedStep
 
 
 def init_batched_state(cfg: OdometryConfig, batch: int, device=None) -> odometry.OdometryState:
@@ -47,9 +50,14 @@ def make_batched_step(cfg: OdometryConfig, mesh=None):
     """(state_batch, scan_batch) -> (state_batch, diag_batch): one step of
     every lane, each field with a leading B. With a mesh of sp > 1 the
     ICP of every lane is shared by the mesh's sp group (the JAX
-    `make_batched_step`); the caller passes this rank's lanes."""
-    sp_group = mesh.sp if mesh is not None and mesh.sp.size > 1 else None
-    return odometry.make_process_scan(cfg, sp_group=sp_group)
+    `make_batched_step`) and the step is eager; otherwise it is the
+    captured step (pipeline/graphs.py; eager on CPU tensors). Either way
+    the returned state is valid until the step's next call, which may
+    rewrite it in place; `step.own(state)` keeps it. The caller passes
+    this rank's lanes."""
+    if mesh is not None and mesh.sp.size > 1:
+        return odometry.make_process_scan(cfg, sp_group=mesh.sp)
+    return CapturedStep(cfg)
 
 
 def make_batched_sequence_runner(cfg: OdometryConfig, mesh=None):
@@ -74,7 +82,7 @@ def make_batched_sequence_runner(cfg: OdometryConfig, mesh=None):
         for s in range(scans_b.xyz.shape[0]):
             state_b, diag = step(state_b, LidarScan(*(x[s] for x in scans_b)))
             diags.append(diag)
-        return state_b, odometry.stack_diagnostics(diags)
+        return step.own(state_b), odometry.stack_diagnostics(diags)
 
     return run
 

@@ -433,20 +433,23 @@ def _rank_main(fn, rank: int, world_size: int, device_type: str, init_method: st
         raise
 
 
-def run_ranks(fn, world_size: int, *args, device: str = "cpu", timeout: float = 600.0) -> list:
+def run_ranks(fn, world_size: int, *args, device: str | None = None,
+              timeout: float = 600.0) -> list:
     """Run fn(*args) in `world_size` spawned processes, one rank each, and
     return each rank's result (tensors as numpy), in rank order.
 
     Each rank joins a default group of `world_size` through a `file://`
     store in a fresh temporary directory (so concurrent callers never
     collide on a port), on the backend `choose_backend` picks for
-    `device` ("cpu", or "cuda": rank r on card r mod the card count). `fn`
+    `device` ("cuda", the default: rank r on card r mod the card count,
+    raising where there is no card; or "cpu" where the caller asks). `fn`
     must be importable (a module-level function) and builds its mesh with
     `make_mesh`. Raises RuntimeError with the failing rank's traceback when
     a rank fails, and when `timeout` seconds pass before every rank is done;
     every process is stopped before this returns."""
     import torch.multiprocessing as mp
 
+    device = resolve_device(device).type
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ranks_")
     results = ctx.Queue()

@@ -7,6 +7,8 @@ Tolerances: loaded leaves bitwise equal; one step resumed on each side from
 the other's file gives poses within 1e-5 and equal map keys.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -114,13 +116,32 @@ def _v3(m, s):
             "format_version": np.int32(3)}
 
 
+@pytest.fixture(scope="module")
+def run_k7(run):
+    """The state of three TINY scans through the JAX step at K = 7 points
+    per voxel, whose legacy lane layouts (v4, v5) are narrower than the
+    current one: the width branch of the port's `_legacy_lanes_v45` /
+    `_migrate_v4`, never taken at K = 20."""
+    cfg = dataclasses.replace(JTINY, keyframe_max_points_cnt=7)
+    d = simulate_sequence(num_scans=3, width=TINY.scan_width, seed=3, speed=2.0,
+                          yaw_rate=0.05, ramp_time=0.0)
+    step = jax.jit(jodo.make_process_scan(cfg))
+    state = jodo.init_state(cfg)
+    for s in d.scans:
+        state, _ = step(state, jax_scan(s["xyz"], s["intensity"], s["ring"], s["time"],
+                                        JTINY.max_raw_points))
+    return jax.tree.map(np.asarray, state), None
+
+
+@pytest.mark.parametrize("k", [20, 7])
 @pytest.mark.parametrize("version", ["v1", "v3", "v4", "v5"])
-def test_legacy_files_migrate_equally(run, tmp_path, version):
+def test_legacy_files_migrate_equally(run, run_k7, tmp_path, version, k):
     """Both packages read a legacy file into the same state, and into the
-    state it was written from."""
+    state it was written from, at K = 20 and at K = 7 points per voxel."""
     from lidar_odometry_demo_tpu.ops import voxel_map as jvm
 
-    jstate = run[0]
+    jstate = (run if k == 20 else run_k7)[0]
+    assert jstate.keyframe.kdim.shape[-1] == k
     m = jvm.VoxelMap(*(jax.numpy.asarray(x) for x in jstate.keyframe))
     host = jvm.VoxelMap(*(np.asarray(x) for x in jstate.keyframe))
     fixture = {"v1": lambda: _v1(m, jstate), "v3": lambda: _v3(m, jstate),

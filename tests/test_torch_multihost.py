@@ -108,7 +108,8 @@ def ranks(tmp_path_factory):
     for n in (2, 4):
         d = tmp_path_factory.mktemp(f"ranks{n}")
         out[n] = (d, mesh_lib.run_ranks(_multihost_ranks, n, n, drive, str(d),
-                                        str(d / "report.json"), timeout=TIMEOUT))
+                                        str(d / "report.json"), device="cpu",
+                                        timeout=TIMEOUT))
     return out
 
 

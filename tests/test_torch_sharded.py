@@ -207,7 +207,7 @@ def seg_loop():
 def ranks(drives, loop, seg_loop):
     """{n: [rank 0's results, ...]} for n = 2 and 4 ranks."""
     return {n: mesh_lib.run_ranks(_sharded_ranks, n, n, drives, loop[1], seg_loop[3],
-                                  timeout=TIMEOUT)
+                                  device="cpu", timeout=TIMEOUT)
             for n in (2, 4)}
 
 
@@ -254,8 +254,16 @@ def test_mesh_without_a_group_or_a_card_raises(monkeypatch):
     assert mesh_lib.make_mesh(1, 1, "cpu").device == torch.device("cpu")
 
 
+def test_run_ranks_defaults_to_the_card(monkeypatch):
+    """run_ranks without a device asks for the card, as the port's other
+    entry points do, and raises where there is none before a rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh_lib.run_ranks(_one_rank, 1)
+
+
 def test_world_of_one_runs_real_collectives():
-    (out,) = mesh_lib.run_ranks(_one_rank, 1, timeout=TIMEOUT)
+    (out,) = mesh_lib.run_ranks(_one_rank, 1, device="cpu", timeout=TIMEOUT)
     assert out["live"] and out["backend"] == "gloo"
     np.testing.assert_array_equal(out["psum"], np.arange(4, dtype=np.float32))
     np.testing.assert_array_equal(out["recv"], np.arange(4, dtype=np.float32))

@@ -154,7 +154,7 @@ def ranks(inputs):
     """{n: [rank 0's results, ...]} for n = 2 and 4 ranks."""
     cloud, queries, drives = inputs
     return {n: mesh_lib.run_ranks(_spatial_ranks, n, n, cloud, queries, drives,
-                                  timeout=TIMEOUT) for n in (2, 4)}
+                                  device="cpu", timeout=TIMEOUT) for n in (2, 4)}
 
 
 def _jax_scans(raw):
