@@ -26,15 +26,19 @@ Phases, each of which raises (non-zero exit) on failure:
    (for the new part, rtol taken against the lane's largest entry).
    CUDA event times of every mode and its plain version (the split-step
    entry points at N = 2, B = 1 and 8, and N = 4), of K2's step at Q = 1 and
-   of a one-element torch op (the launch floor);
+   of a one-element torch op (the launch floor). The ICP loop's condition
+   kernel (kernels/loop.cu, the JAX `lax.while_loop`'s `cond`) bitwise its
+   plain version on 100 carries each at B = 1 and 8, drawn around every
+   threshold, and the times of both;
 3. the main path, `LidarOdometry(device="cuda")` at the full VLP16
    configuration `OdometryConfig()`, on the 40-scan bench drive (seed 42,
    5 m/s, 0.08 rad/s): one warm-up pass, one timed pass. It fails if a
    kernel was not launched, if the launch counts do not match the schedule
    (K1 once per ICP round, K2 four times, K3 once per ICP scan and once per
-   map_update), if aligned ATE against ground truth exceeds 0.03 m or is
-   not within 1e-4 m of 0.00936 m (the JAX package's and the port's
-   earlier runs), or if any scan diverged;
+   map_update, the condition once per captured scan and once per round), if
+   aligned ATE against ground truth exceeds 0.03 m or is not within 1e-4 m
+   of 0.00936 m (the JAX package's and the port's earlier runs), or if any
+   scan diverged;
 4. K3's three modes against their plain versions on the card, bitwise: the
    neighbourhood lookup (base and n_present everywhere, every present
    candidate row) and map_update's group lookup (pos_c, found), recorded
@@ -139,22 +143,29 @@ Phases, each of which raises (non-zero exit) on failure:
    timed on the device by CUDA events (CommStats) as well as on the host;
 11. the captured step against the eager step. Phases 3, 5, 6, 7 and 8 ran
    the entry points a user calls (`LidarOdometry`, the batched runner, the
-   CLI, `run_live`), which on the card replay the step from CUDA graphs
-   (pipeline/graphs.py) from the third scan on, their launch counts
-   counted per replay. Here the eager step (`make_process_scan`) runs the
-   40-scan bench drive from a fresh state on the main path and the parity
-   path, and the fleet's B = 8 drives; each must be bitwise the captured
-   runs of phases 3, 5 and 7 (poses, ICP iterations and matches of every
-   scan, every lane; final keys, counts and origin). Then, for both steps,
-   on the main path per scan and on the fleet per step of 8 (scans 20-29
-   timed by the host clock, 30-39 under torch.profiler, after 20 scans of
-   warm-up; profile_torch.measure): ms, synchronising calls (torch's sync
-   debug mode warnings plus the step's waits on its pinned host copies),
-   host launches (the CUDA runtime's launch, graph-launch and copy calls),
-   device operations, busy ms and idle share. It fails if the captured main
-   path makes more than 1 + (its ICP rounds) synchronising calls per scan.
+   CLI, `run_live`), which on the card run the step from CUDA graphs
+   (pipeline/graphs.py) from the third scan on: (a) replayed, then one
+   graph of the ICP loop as a WHILE node and (c); their launch counts
+   counted per launch and the loop's rounds read from the device when the
+   counts are read. Here the eager step (`make_process_scan`, its ICP loop
+   on the host) runs the scans of the main path, the parity path and the
+   live path (the 40 scans phase 8 uploaded) from a fresh state, and the
+   fleet's B = 8 drives; each must be bitwise the captured runs of phases
+   3, 5, 8 and 7 (poses, ICP iterations and matches of every scan, every
+   lane; final keys, counts and origin), with K1, K2 and K3's launch
+   counters equal. Then, for both steps on each of the four, per scan
+   (fleet: per step of 8; scans 20-29 timed by the host clock, 30-39 under
+   torch.profiler, after 20 scans of warm-up; profile_torch.measure): ms,
+   synchronising calls (torch's sync debug mode warnings plus the step's
+   waits on its pinned host copies), host launches (the CUDA runtime's
+   launch, graph-launch and copy calls) and among them graph launches,
+   device operations, busy ms, idle share and ICP rounds. It fails unless
+   the captured step makes exactly 1 synchronising call and at most 2 graph
+   launches per scan on every path, both steps run the same rounds, and
+   the main path runs 4.00 rounds per scan.
 
-Prints a `kernels` JSON line (each kernel with its launches on every path,
+Prints a `kernels` JSON line (each kernel, the loop's condition among
+them, with its launches on every path,
 `launches_live` the live phase's, `launches_sharded_sp` / `_spatial` /
 `_dp` phase 10's per rank, K2's split-step entry points `gn_sum_step` and
 `gn_epilogue` (K2e) as kernels of their own whose `launches` are the sp
@@ -677,27 +688,104 @@ def check_gathered_step(rng, device) -> tuple[dict, dict]:
     return summed, epilogue
 
 
+def check_loop_condition(rng, device) -> dict:
+    """The ICP loop's condition kernel (kernels/loop.cu, the counterpart of
+    the JAX `lax.while_loop`'s `cond`) against its plain version, bitwise
+    (a bool per lane), at the main path's carry (one sequence) and the
+    fleet's (B = 8), the step norm read at K2's lane stride; 100 carries
+    each, drawn around every threshold (rounds 0-36 against the minimum 4
+    and the cap 35, stall 0-4 against 3, step norms at and beside the
+    tolerance). CUDA event times of the kernel and its plain version."""
+    import torch
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.kernels.jtwj import GnWork
+    from lidar_odometry_demo_tpu_torch.kernels.loop import loop_condition, loop_condition_plain
+
+    cfg = OdometryConfig()
+    tol = np.float32(cfg.icp_convergence_step_norm)
+    norms = np.array([0.0, np.nextafter(tol, np.float32(0)), tol,
+                      np.nextafter(tol, np.float32(1)), 2e-4, 1e9], np.float32)
+    up = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+    out, seen = {}, set()
+    for lead in ((), (8,)):
+        work = GnWork.empty(cfg.icp_inner_iterations, device, lead)
+        norm = work.slots[-1][1]
+        go = torch.empty(lead, dtype=torch.bool, device=device)
+        for _ in range(100):
+            iters = up(rng.integers(0, 37, lead).astype(np.int32))
+            stall = up(rng.integers(0, 5, lead).astype(np.int32))
+            norm.copy_(up(rng.choice(norms, lead)))
+            got = loop_condition(iters, stall, norm, cfg, out=go).clone()
+            want = loop_condition_plain(iters, stall, norm, cfg)
+            if not torch.equal(got, want):
+                raise AssertionError(f"loop_condition at lanes {lead}: {got} != plain {want}")
+            seen.update(want.reshape(-1).tolist())
+        B = lead[0] if lead else 1
+        out[B] = dict(
+            ms=time_ms(lambda: loop_condition(iters, stall, norm, cfg, out=go), 200),
+            plain_ms=time_ms(lambda: loop_condition_plain(iters, stall, norm, cfg), 200),
+            # the carry read once (rounds, stall, step norm: 12 bytes a lane),
+            # the condition written (a byte a lane); ~6 operations a lane
+            bound=bound_ms(13 * B, 6 * B))
+    if seen != {True, False}:
+        raise AssertionError(f"loop_condition: the carries gave only {seen}")
+    b1, b8 = out[1], out[8]
+    log(f"kernel loop_condition (the ICP loop's condition) at B = 1 and 8: bitwise its plain "
+        f"version on 200 carries; {b1['ms']:.4f} / {b8['ms']:.4f} ms, plain "
+        f"{b1['plain_ms']:.4f} / {b8['plain_ms']:.4f} ms, bound {b1['bound'][0]:.2e} / "
+        f"{b8['bound'][0]:.2e} ms ({b1['bound'][1]})")
+    return dict(name="loop_condition", route="cuda",
+                source="lidar_odometry_demo_tpu_torch/kernels/loop.cu",
+                replaces="lidar_odometry_demo_tpu/ops/icp.py:267", max_abs_err=0.0,
+                ms=b1["ms"], plain_ms=b1["plain_ms"], bound_ms=b1["bound"][0],
+                bound_by=b1["bound"][1], library_ms=None, ms_b8=b8["ms"],
+                plain_ms_b8=b8["plain_ms"], bound_ms_b8=b8["bound"][0])
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 5: the main path and the strict reference path
 # --------------------------------------------------------------------------
 
 def counters() -> dict:
-    """The launch-counted kernel wrappers, by kernel name."""
+    """The launch-counted kernel wrappers, by kernel name: K1, K2, K3 and
+    the ICP loop's condition (which only the captured step launches)."""
     from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
     from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate
+    from lidar_odometry_demo_tpu_torch.kernels.loop import loop_condition
     from lidar_odometry_demo_tpu_torch.kernels.search import search_sorted
 
     return {"match_rows": match_rows, "jtwj_accumulate": jtwj_accumulate,
-            "search_sorted": search_sorted}
+            "search_sorted": search_sorted, "loop_condition": loop_condition}
 
 
-def zero_counts() -> None:
-    for fn in counters().values():
+def zero_counts(counted: dict | None = None) -> None:
+    """Every count of `counted` (default: counters()) set to 0, after the
+    rounds the captured loops ran so far are added (so none is added
+    later)."""
+    from lidar_odometry_demo_tpu_torch.pipeline.graphs import settle_launches
+
+    settle_launches()
+    for fn in (counted or counters()).values():
         fn.launches = 0
 
 
-def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counters().items()}
+def read_counts(counted: dict | None = None) -> dict:
+    """The counts of `counted` (default: counters()), the rounds the
+    captured loops ran added first (a wait for the device)."""
+    from lidar_odometry_demo_tpu_torch.pipeline.graphs import settle_launches
+
+    settle_launches()
+    return {name: fn.launches for name, fn in (counted or counters()).items()}
+
+
+def loop_schedule(iters: np.ndarray, eager_scans: int) -> int:
+    """The condition kernel's launches over a drive whose first
+    `eager_scans` scans ran eager (the warm-up and first scans) and the rest
+    captured: per captured scan one before the WHILE node and one per round
+    (a step's rounds are its slowest lane's)."""
+    per_step = iters.reshape(len(iters), -1).max(axis=1)[eager_scans:]
+    return int(per_step.sum()) + len(per_step)
 
 
 def bench_drive(device) -> dict:
@@ -738,6 +826,7 @@ def drive_path(name: str, cfg, bench: dict, device, *, ate_gt=None, ate_ref_max=
 
     from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
     from lidar_odometry_demo_tpu_torch.ops.voxel_map import map_size
+    from lidar_odometry_demo_tpu_torch.pipeline.graphs import WARM_UP_SCANS
     from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
 
     scans = bench["scans"]
@@ -778,6 +867,11 @@ def drive_path(name: str, cfg, bench: dict, device, *, ate_gt=None, ate_ref_max=
     if launches["jtwj_accumulate"] != cfg.icp_inner_iterations * rounds:
         raise AssertionError(
             f"{name}: K2 launches {launches['jtwj_accumulate']} != 4 x ICP rounds {rounds}")
+    # a fresh LidarOdometry: the warm-up scans eager, the rest captured
+    want_loop = loop_schedule(iters, WARM_UP_SCANS)
+    if launches["loop_condition"] != want_loop:
+        raise AssertionError(f"{name}: condition launches {launches['loop_condition']} != "
+                             f"captured scans + their rounds {want_loop}")
     if ate > 0.03:
         raise AssertionError(f"{name}: aligned ATE {ate:.4f} m exceeds 0.03 m")
     if ate_gt is not None and abs(ate - ate_gt) > 1e-4:
@@ -1218,8 +1312,9 @@ def run_fleet(bench: dict, main_diags: list, main_odo, single_ms: float, device)
         raise AssertionError(f"fleet path: a lane's ATE exceeds 0.03 m: {ates}")
     if diverged:
         raise AssertionError(f"fleet path: {diverged} lane scans diverged")
+    # the runner's step is captured already: only the fresh state's first step is eager
     want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
-            "search_sorted": icp_steps + S}
+            "search_sorted": icp_steps + S, "loop_condition": loop_schedule(iters, 1)}
     if launches != want:
         raise AssertionError(f"fleet path: launches {launches} != the schedule {want}")
     return dict(launches=launches, state=state, scans=scans_b, diags=diags, ms_per_step=ms_step,
@@ -1578,6 +1673,7 @@ class _TimedOdometry:
         self.decoded = (0.0, 0.0)
         self.marks: list[list[float]] = []
         self.events: list = []
+        self.scans: list = []  # the uploaded scans, which phase 11 drives again
 
     def process_cloud(self, xyz, intensity, ring, t):
         import torch
@@ -1588,6 +1684,7 @@ class _TimedOdometry:
         scan = scan_from_numpy(xyz, intensity, ring, t, self.odo.cfg.max_raw_points,
                                self.odo.device)
         marks.append(time.perf_counter())
+        self.scans.append(scan)
         ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
         ev[0].record()
         diag = self.odo.process_scan(scan)
@@ -1646,6 +1743,7 @@ def run_live_path(bench: dict, main_diags: list, main_ms: float, device) -> dict
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig
     from lidar_odometry_demo_tpu_torch.io import live, native
     from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
+    from lidar_odometry_demo_tpu_torch.pipeline.graphs import WARM_UP_SCANS
     from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
 
     cfg = OdometryConfig()
@@ -1742,7 +1840,8 @@ def run_live_path(bench: dict, main_diags: list, main_ms: float, device) -> dict
     ate = ate_rmse(est[:k], bench["gt_rel"][:k], align=True)
     rounds = int(iters.sum())
     want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
-            "search_sorted": int(np.sum(iters > 0)) + n}
+            "search_sorted": int(np.sum(iters > 0)) + n,
+            "loop_condition": loop_schedule(iters, WARM_UP_SCANS)}
     log(f"live: {d_free_t:.3g} m / {d_free_q:.3g} from the socket-free run over the same "
         f"packets, {d_main:.5f} m from the main path (phase 3), aligned ATE {ate:.5f} m vs "
         f"ground truth, diverged {diverged}, mean ICP rounds {rounds / max(n - 1, 1):.2f}, "
@@ -1759,7 +1858,8 @@ def run_live_path(bench: dict, main_diags: list, main_ms: float, device) -> dict
         raise AssertionError(f"live: launches {launches} != the main path's schedule {want}")
     return dict(launches=launches, total_ms=total, step_ms=step_dev, decode_ms=dec_a,
                 packets_sent=sent.value, packets_received=len(received), scans=n, ate=ate,
-                d_main=d_main, d_free=d_free_t)
+                d_main=d_main, d_free=d_free_t, diags=diags, state=odo.odo.state,
+                uploaded=odo.scans)
 
 
 def run_live_cli(bench: dict) -> dict:
@@ -2171,12 +2271,14 @@ def _sharded_drive(step, state, scans, mesh, counted: dict, sync_ranks=None):
     on the device in the timed pass and their spans read once per scan
     (CommStats.settle). `sync_ranks`: called between the two passes (a
     barrier, so that ranks without collectives time the same stretch).
-    Returns the poses, diagnostics, final state, launches, collectives and
+    Returns the poses, diagnostics, final state, launches, collectives, the
+    step's waits on the device (`HostFlags.waits`) and graph launches, and
     ms per scan: by CUDA events, by the host's clock, and the process's CPU
-    time."""
+    time. `captured`: the step runs from CUDA graphs (not eager)."""
     import torch
 
-    from lidar_odometry_demo_tpu_torch.pipeline import odometry
+    from lidar_odometry_demo_tpu_torch.device import HostFlags
+    from lidar_odometry_demo_tpu_torch.pipeline import graphs, odometry
 
     def run(s):
         diags = []
@@ -2190,9 +2292,9 @@ def _sharded_drive(step, state, scans, mesh, counted: dict, sync_ranks=None):
     torch.cuda.synchronize()
     if sync_ranks is not None:
         sync_ranks()
-    for fn in counted.values():
-        fn.launches = 0
+    zero_counts(counted)
     mesh.stats.reset(device_timing=True)
+    waits, graph_launches = HostFlags.waits, graphs.graph_launches
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0, c0 = time.perf_counter(), time.process_time()
@@ -2202,11 +2304,14 @@ def _sharded_drive(step, state, scans, mesh, counted: dict, sync_ranks=None):
     end.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / len(scans)
     cpu_ms = (time.process_time() - c0) * 1e3 / len(scans)
-    return dict(t=d.pose.t, q=d.pose.q, iters=d.icp_iterations, matches=d.num_matches,
+    final = step.own(final)  # a captured step's buffers: its next call rewrites them
+    waits, graph_launches = HostFlags.waits - waits, graphs.graph_launches - graph_launches
+    return dict(waits=waits, graph_launches=graph_launches,
+                captured=getattr(step, "capturable", False) and final.current.t.is_cuda,t=d.pose.t, q=d.pose.q, iters=d.icp_iterations, matches=d.num_matches,
                 diverged=d.diverged, map_voxels=d.map_voxels,
                 keys=final.keyframe.keys, count=final.keyframe.count,
                 origin=final.keyframe.origin, state=final,
-                launches={k: fn.launches for k, fn in counted.items()},
+                launches=read_counts(counted),
                 stats=mesh.stats.as_dict(), ms_per_scan=start.elapsed_time(end) / len(scans),
                 host_ms_per_scan=host_ms, cpu_ms_per_scan=cpu_ms)
 
@@ -2285,6 +2390,7 @@ def sharded_rank(inputs: str) -> dict:
     from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
     from lidar_odometry_demo_tpu_torch.parallel import pose_graph as pg
     from lidar_odometry_demo_tpu_torch.pipeline import odometry
+    from lidar_odometry_demo_tpu_torch.pipeline.graphs import CapturedStep
 
     cfg = OdometryConfig()
     mesh = mesh_lib.make_mesh(1, SHARDED_RANKS)
@@ -2294,14 +2400,15 @@ def sharded_rank(inputs: str) -> dict:
     counted = sharded_counters()
     out = {"backend": mesh.backend, "device": str(dev)}
 
-    # (a) sp: every rank aligns its half of the matching points
-    step = odometry.make_process_scan(cfg, sp_group=mesh.sp)
+    # (a) sp: every rank aligns its half of the matching points (the captured
+    # step, which runs eager on gloo)
+    step = CapturedStep(cfg, sp_group=mesh.sp)
     r = _sharded_drive(step, odometry.init_state(cfg, dev), scans, mesh, counted)
     r.pop("state")
     out["sp"] = r
 
     # (b) spatial: a column shard of the map per rank, the halo per scan
-    step = odometry.make_process_scan(cfg, spatial_group=mesh.sp)
+    step = CapturedStep(cfg, spatial_group=mesh.sp)
     r = _sharded_drive(step, spatial.init_spatial_state(cfg, SHARDED_RANKS, dev), scans, mesh,
                        counted)
     r.update(halo_view_fields(r.pop("state").keyframe, mesh, torch.load(
@@ -2449,8 +2556,11 @@ def _per_scan(r: dict, n_scans: int) -> str:
             f"{st['exchanges'] / n_scans:.2f}/scan, {st['exchanged_bytes'] / n_scans / 1e6:.3f} "
             f"MB/scan, host {st['exchange_host_ms'] / n_scans:.3f} ms/scan (of which staging "
             f"{st['staging_ms'] / n_scans:.3f} ms, {st['staged_bytes'] / n_scans / 1e6:.3f} "
-            f"MB/scan), device {st['exchange_device_ms'] / n_scans:.3f} ms/scan; launches per "
-            f"scan {launches}")
+            f"MB/scan), device {st['exchange_device_ms'] / n_scans:.3f} ms/scan; captured "
+            f"graphs holding collectives, device {st.get('graph_device_ms', 0.0) / n_scans:.3f} "
+            f"ms/scan; {r['graph_launches'] / n_scans:.2f} graph launches and "
+            f"{r['waits'] / n_scans:.2f} waits on the device per scan "
+            f"({'captured' if r['captured'] else 'eager'} step); launches per scan {launches}")
 
 
 def path_reference(bench: dict, diags: list, odo) -> dict:
@@ -2500,11 +2610,18 @@ def _split_schedule(label: str, rs: list, n_scans: int) -> None:
         rounds = by_kind.get("matches,cost", 0)
         want = {"match_rows": rounds, "jtwj_accumulate": rounds,
                 "gn_sum_step": (inner - 1) * rounds, "gn_epilogue": rounds,
-                "search_sorted": 2 * n_scans}
+                "search_sorted": 2 * n_scans, "loop_condition": 0}
         if r["launches"] != want or by_kind.get("H,b", 0) != inner * rounds:
             raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the split "
                                  f"schedule {want}, or {by_kind.get('H,b', 0)} gathers of H and "
                                  f"b for {rounds} rounds")
+        # the rounds driven from the host, one wait each; captured (NCCL):
+        # per scan (a) and (c), and (b) per round; eager (gloo): no graph
+        graph_launches = 2 * n_scans + rounds if r["captured"] else 0
+        if (r["waits"], r["graph_launches"]) != (rounds, graph_launches):
+            raise AssertionError(f"{label}, rank {i}: {r['waits']} waits and "
+                                 f"{r['graph_launches']} graph launches for {rounds} rounds "
+                                 f"over {n_scans} scans (want {rounds} and {graph_launches})")
 
 
 def _drift(label: str, a: dict, ref: dict) -> tuple[float, np.ndarray, float]:
@@ -2667,12 +2784,21 @@ def check_dp_ranks(label: str, rs: list, fleet: dict) -> dict:
     log(f"{label}: every lane bitwise phase 7's (poses, iterations, final keys, counts, origin)")
     for i, r in enumerate(rs):
         rounds = int(r["iters"].max(axis=1).sum())
+        # the step is captured in the warm-up pass: only the first step is eager
         want = {"match_rows": rounds, "jtwj_accumulate": inner * rounds, "gn_sum_step": 0,
                 "gn_epilogue": 0,
-                "search_sorted": int(np.sum(r["iters"].max(axis=1) > 0)) + n_scans}
+                "search_sorted": int(np.sum(r["iters"].max(axis=1) > 0)) + n_scans,
+                "loop_condition": loop_schedule(r["iters"], 1)}
         if r["launches"] != want:
             raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the batched "
                                  f"schedule {want}")
+        # the fresh state's first step eager (two first-scan reads: the
+        # state copied in, then the eager step's own), then per step (a),
+        # the loop graph and the first-scan test's one wait
+        if (r["waits"], r["graph_launches"]) != (n_scans + 1, 2 * (n_scans - 1)):
+            raise AssertionError(f"{label}, rank {i}: {r['waits']} waits and "
+                                 f"{r['graph_launches']} graph launches over {n_scans} steps "
+                                 f"(want {n_scans + 1} and {2 * (n_scans - 1)})")
     return dict(ms_per_scan=[r["ms_per_scan"] for r in rs],
                 host_ms_per_scan=[r["host_ms_per_scan"] for r in rs],
                 cpu_ms_per_scan=[r["cpu_ms_per_scan"] for r in rs],
@@ -2832,13 +2958,18 @@ def _bitwise_drives(label: str, got: tuple, want: tuple) -> None:
 
 
 def run_capture_check(bench: dict, paths: dict, fleet: dict, device) -> dict:
-    """Phase 11: the eager step over the 40-scan bench drive from a fresh
-    state on the main path and the parity path, and over the fleet's B = 8
-    drives, each bitwise the captured step's run of phases 3, 5 and 7
-    (`paths`: name -> (diagnostics, final state), `fleet`: phase 7's
-    result), lane by lane. Then, per scan for both steps on the main path
-    and per step of 8 on the fleet, profile_torch.measure's host launches,
-    device operations, synchronising calls, idle share and ms."""
+    """Phase 11: the eager step (its ICP loop on the host) over the scans
+    of the main, parity and live paths from a fresh state and over the
+    fleet's B = 8 drives, each bitwise the captured step's run of phases 3,
+    5, 8 and 7 (`paths`: name -> (diagnostics, final state, launches, scans),
+    `fleet`: phase 7's result), lane by lane, with K1, K2 and K3's launch
+    counters equal and no condition launched. Then, per scan for both steps
+    on each path (per step of 8 on the fleet), profile_torch.measure's
+    synchronising calls, host launches (graph launches among them), device
+    operations, busy ms, idle share, ms and ICP rounds. It fails unless the
+    captured step makes exactly one synchronising call and at most two graph
+    launches per scan on every path, and both steps run the same rounds
+    (4.00 per scan on the main path)."""
     import torch
 
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig, reference_parity
@@ -2846,56 +2977,81 @@ def run_capture_check(bench: dict, paths: dict, fleet: dict, device) -> dict:
     from lidar_odometry_demo_tpu_torch.parallel import batched
     from lidar_odometry_demo_tpu_torch.pipeline import odometry
     from lidar_odometry_demo_tpu_torch.pipeline.graphs import CapturedStep
-    from profile_torch import measure
+    from profile_torch import measure, start_cupti
 
+    start_cupti()  # before the graphs measured below are built
     cfg = OdometryConfig()
-    scans = bench["scans"]
-    cfgs = dict(main=cfg, parity=reference_parity(cfg))
-    for name, got in paths.items():
-        c = cfgs[name]
-        _bitwise_drives(f"{name} path", got, _eager_drive(c, odometry.init_state(c, device),
-                                                         scans)[::-1])
+    cfgs = dict(main=cfg, parity=reference_parity(cfg), live=cfg)
+    kernel_names = ("match_rows", "jtwj_accumulate", "search_sorted")
+
+    def same_launches(label: str, captured: dict, eager: dict) -> None:
+        if eager["loop_condition"] or any(captured[k] != eager[k] for k in kernel_names):
+            raise AssertionError(f"{label}: the captured run's launches {captured} differ "
+                                 f"from the eager step's {eager}")
+
     S, B = fleet["scans"].xyz.shape[:2]
     lanes = [LidarScan(*(x[s] for x in fleet["scans"])) for s in range(S)]
-    e_state, e_diags = _eager_drive(cfg, batched.init_batched_state(cfg, B, device), lanes)
     f_diags = [odometry.StepDiagnostics(*(None if x is None else (
         type(x)(*(y[s] for y in x)) if isinstance(x, tuple) else x[s]) for x in fleet["diags"]))
         for s in range(S)]
-    _bitwise_drives(f"fleet path (B = {B})", (f_diags, fleet["state"]), (e_diags, e_state))
-    log(f"captured step: bitwise the eager step on the main path and the parity path "
-        f"(40 scans each) and on the fleet (B = {B}, every lane): poses, iterations, "
-        f"matches, final keys, counts and origin")
+    drives = {name: (cfgs[name], odometry.init_state(cfgs[name], device), scans,
+                     (diags, state), launches)
+              for name, (diags, state, launches, scans) in paths.items()}
+    drives[f"fleet (B = {B})"] = (cfg, batched.init_batched_state(cfg, B, device), lanes,
+                                  (f_diags, fleet["state"]), fleet["launches"])
+    for name, (c, state0, scans, got, launches) in drives.items():
+        zero_counts()
+        e_state, e_diags = _eager_drive(c, state0, scans)
+        e_launches = read_counts()
+        _bitwise_drives(f"{name} path", got, (e_diags, e_state))
+        same_launches(f"{name} path", launches, e_launches)
+    log(f"captured step: bitwise the eager step on the main, parity and live paths "
+        f"({', '.join(str(len(d[2])) for d in drives.values())} scans) and on the fleet "
+        f"(B = {B}, every lane): poses, iterations, matches, final keys, counts and origin; "
+        f"K1, K2 and K3's launch counters equal to the eager step's on each")
 
     out = {}
-    for unit, B_, drive in (("scan", 0, scans), (f"step of {B}", B, lanes)):
+    for name, (c, _, scans, _, _) in drives.items():
+        B_ = B if name.startswith("fleet") else 0
+        unit = f"step of {B}" if B_ else "scan"
         for label in ("eager", "captured"):
-            step = odometry.make_process_scan(cfg) if label == "eager" else CapturedStep(cfg)
-            state = [batched.init_batched_state(cfg, B_, device) if B_
-                     else odometry.init_state(cfg, device)]
+            step = odometry.make_process_scan(c) if label == "eager" else CapturedStep(c)
+            state = [batched.init_batched_state(c, B_, device) if B_
+                     else odometry.init_state(c, device)]
 
             def run(scan, step=step, state=state):
                 state[0], diag = step(state[0], scan)
                 return diag.icp_iterations
 
-            for scan in drive[:20]:
+            for scan in scans[:20]:
                 run(scan)
-            m = measure(run, drive[20:40])
-            key = f"{'fleet' if B_ else 'main'} {label}"
+            m = measure(run, scans[20:40])
+            m["graph_launches"] = sum(v for k, v in m["host_launch_calls"].items()
+                                      if "GraphLaunch" in k)
+            key = f"{name.split()[0]} {label}"
             out[key] = {k: v for k, v in m.items() if not k.endswith("events")}
             log(f"phase 11, {key} step, per {unit} (scans 20-29 timed, 30-39 profiled): "
                 f"{m['ms']:.3f} ms, {m['syncs']:.2f} synchronising calls (sync debug "
                 f"warnings {m['sync_warnings']:.2f}, step waits {m['waits']:.2f}), "
-                f"{m['host_launches']:.1f} host launches "
-                f"{ {k: round(v, 1) for k, v in m['host_launch_calls'].items()} }, "
+                f"{m['host_launches']:.1f} host launches, {m['graph_launches']:.1f} of them "
+                f"graph launches {dict((k, round(v, 1)) for k, v in m['host_launch_calls'].items())}, "
                 f"{m['device_ops']:.1f} device operations, busy {m['busy_ms']:.3f} ms, idle "
                 f"share {m['idle_share_timed']:.4f} against the timed ms "
                 f"({m['idle_share']:.4f} against {m['profiled_ms']:.3f} ms with the profiler), "
                 f"{m['rounds'] / m['scans']:.2f} ICP rounds")
-    rounds = out["main captured"]["rounds"] / out["main captured"]["scans"]
-    if out["main captured"]["syncs"] > 1 + rounds + 1e-9:
-        raise AssertionError(f"phase 11: the captured main path makes "
-                             f"{out['main captured']['syncs']} synchronising calls per scan, "
-                             f"more than 1 + its {rounds} ICP rounds")
+        e, g = out[f"{name.split()[0]} eager"], out[f"{name.split()[0]} captured"]
+        if abs(g["syncs"] - 1.0) > 1e-9 or g["graph_launches"] > 2 + 1e-9:
+            raise AssertionError(f"phase 11, {name}: the captured step makes {g['syncs']} "
+                                 f"synchronising calls and {g['graph_launches']} graph launches "
+                                 f"per {unit} (1 and at most 2 asked)")
+        if (e["rounds"], e["profiled_rounds"]) != (g["rounds"], g["profiled_rounds"]):
+            raise AssertionError(f"phase 11, {name}: ICP rounds eager {e['rounds']} / "
+                                 f"{e['profiled_rounds']}, captured {g['rounds']} / "
+                                 f"{g['profiled_rounds']}")
+    main_rounds = out["main captured"]["rounds"] / out["main captured"]["scans"]
+    if main_rounds != 4.0:
+        raise AssertionError(f"phase 11: {main_rounds} ICP rounds per scan on the main path "
+                             f"(4.00 before the loop moved to the device)")
     return out
 
 
@@ -2919,7 +3075,8 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     rng = np.random.default_rng(1234)
-    kernels = [check_match_rows(rng, device), check_jtwj(rng, device)]
+    kernels = [check_match_rows(rng, device), check_jtwj(rng, device),
+               check_loop_condition(np.random.default_rng(11), device)]
     split_kernels = check_gathered_step(np.random.default_rng(7), device)
     bench = bench_drive(device)
     odo, launches, main_diags, single_ms = run_main_path(bench, device)
@@ -2935,8 +3092,11 @@ def main() -> int:
     run_live_cli(bench)
     refine = run_refine(main_diags, device)
     sharded = run_sharded(bench, main_diags, odo, fleet, refine, device)
-    run_capture_check(bench, dict(main=(main_diags, odo.state),
-                                  parity=(parity_diags, parity_odo.state)), fleet, device)
+    run_capture_check(bench, dict(
+        main=(main_diags, odo.state, launches, bench["scans"]),
+        parity=(parity_diags, parity_odo.state, parity, bench["scans"]),
+        live=(live_path["diags"], live_path["state"], live_path["launches"],
+              live_path["uploaded"])), fleet, device)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_reference_parity"] = parity[k["name"]]
@@ -2945,7 +3105,7 @@ def main() -> int:
         k["launches_cli_fleet"] = cli_fleet[k["name"]]
         k["launches_live"] = live_path["launches"][k["name"]]
         k["launches_refine"] = refine["launches"][k["name"]]
-        k.update(fleet_numbers[k["name"]])
+        k.update(fleet_numbers.get(k["name"], {}))  # the condition's B = 8 numbers are its own
         k["kernel_ms"] = k["ms"]
     for k in kernels + list(split_kernels):
         for mode in ("sp", "spatial", "dp"):

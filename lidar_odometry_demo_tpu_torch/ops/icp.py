@@ -15,14 +15,21 @@
   current pose (the reference's findMatchingPairs per round: one launch of
   kernel K3's neighbourhood lookup); kernel K1 picks the winners either way.
 
-The outer loop is Python control flow around three parts, which a CUDA
-graph can capture (pipeline/graphs.py): `Align.begin` (the candidate gather
-and the loop's carry in buffers of its own), `Align.round` (one round,
-updating the carry in place and copying the round's exit flags to a host
-buffer without a synchronisation) and `Align.finish` (the best-pose exit).
-Between rounds the host waits for the flags and evaluates the JAX loop's
-condition on them (`RoundSchedule`): one synchronisation per round. No
-tensor is made from host data inside the three parts.
+The outer loop is built of three parts, which a CUDA graph can capture
+(pipeline/graphs.py): `Align.begin` (the candidate gather and the loop's
+carry in buffers of its own), `Align.round` (one round, updating the carry
+in place: the pose and step norm, the rounds run, the stall count and the
+best-pose bookkeeping) and `Align.finish` (the best-pose exit). The JAX
+loop's condition is `Align.condition` (kernels/loop.py, a kernel on the
+card), which reads only the carry. On the card the captured step without
+a group runs the loop on the device: the condition, then a CUDA graph
+WHILE node over the round and the condition, with no host read. The
+eager step (the CPU's, a gloo group's, the warm-up's) and the captured
+step under an NCCL group run the plain loop on the host instead
+(`run_rounds`): after each round it copies the round's exit flags to the
+host, waits for them and evaluates the condition there (`RoundSchedule`),
+one synchronisation per round. No tensor is made from host data inside
+the three parts or the condition.
 
 Groups (the JAX package's `axis_name`): with a group of ranks (an sp group,
 each rank holding a slice of the queries, or a spatial group, each rank
@@ -42,10 +49,8 @@ axis on the map, the queries and the guess), as the JAX package's
 `while_loop` under `vmap` does: rounds go on while any lane's condition
 holds, and a finished lane is frozen (kernel K2 returns its pose and step
 norm unchanged; every other update is masked) through the carry's (B,)
-`active` buffer, which the host rewrites from its schedule before each
-round. Each lane's round counter for the schedule and its stall count live
-on the host beside the one read per round; the iteration counts the result
-reports are counted on the device (`IcpLoop.iters`).
+`active` buffer, which the condition writes on the device (the host loop
+writes it from its schedule before each round instead).
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from lidar_odometry_demo_tpu_torch.config import OdometryConfig
 from lidar_odometry_demo_tpu_torch.device import HostFlags, constant
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
     GnWork, gn_epilogue, gn_step, gn_sum_step, jtwj_accumulate, sum_in_rank_order)
+from lidar_odometry_demo_tpu_torch.kernels.loop import loop_condition
 from lidar_odometry_demo_tpu_torch.kernels.search import query_world
 from lidar_odometry_demo_tpu_torch.ops import se3
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
@@ -74,7 +80,8 @@ class IcpLoop(NamedTuple):
     """One scan's ICP loop: the carry, which every round updates in place,
     and the round's inputs and workspaces. The pose and step norm being
     iterated are K2's last slot (`pose`, `step_norm`), where each round's
-    last step writes them."""
+    last step writes them. The JAX loop's carry (pose, i, step_norm,
+    n_matches, best_cost, best_pose, best_matches, stall) is all here."""
 
     query_xyz: torch.Tensor     # (..., Q, 3) local
     query_valid: torch.Tensor   # (..., Q), this rank's queries where owner_fn is given
@@ -88,8 +95,10 @@ class IcpLoop(NamedTuple):
     best_matches: torch.Tensor
     n_matches: torch.Tensor     # the last round's matches (a frozen lane's last)
     iters: torch.Tensor         # rounds run, per lane (int32)
+    stall: torch.Tensor         # rounds since the best cost last improved (int32)
+    go: torch.Tensor            # the condition per lane (bool); over lanes `active` itself
     active: torch.Tensor | None  # (B,) over lanes: the lanes this round runs
-    go_host: torch.Tensor | None  # (B,) host staging of `active`
+    go_host: torch.Tensor | None  # (B,) host staging of `active` (the host loop's)
     flags: HostFlags            # the round's (2, lanes) exit flags, on the host
 
     @property
@@ -102,9 +111,10 @@ class IcpLoop(NamedTuple):
 
 
 class RoundSchedule:
-    """The JAX loop's condition, per lane, on the host (the loop's carry:
-    rounds run, rounds without improvement, the last round's convergence
-    flag), advanced from each round's flags."""
+    """The JAX loop's condition, per lane, on the host: the plain version
+    of the device loop (its own carry of rounds run, rounds without
+    improvement and the last round's convergence flag, advanced from each
+    round's flags)."""
 
     def __init__(self, cfg: OdometryConfig, n_lanes: int):
         self.cfg = cfg
@@ -168,9 +178,10 @@ class Align:
     Every argument may carry a leading lane axis B; the result then has it
     too (iterations, step norm and matches per lane).
 
-    Calling it runs `begin`, then `round` until the schedule stops
+    Calling it runs `begin`, then `round` until the host's schedule stops
     (`run_rounds`), then `finish`; pipeline/graphs.py captures the three
-    parts as CUDA graphs and replays them in the same order.
+    parts as CUDA graphs and, without a group, runs the rounds under a
+    WHILE node on the device, its condition `condition`.
 
     `group` (parallel/mesh.py Group): the ranks that share this problem,
     each with its own queries (and, under a column-sharded map, its own
@@ -222,20 +233,20 @@ class Align:
         pose.q.copy_(guess.q)
         step_norm.fill_(1e9)
         flags, go_host = self.host_buffers(lead, dev)
+        go = torch.ones(lead, dtype=torch.bool, device=dev)
         return IcpLoop(
             query_xyz=query_xyz, query_valid=query_valid, guess=guess, cand=cand,
             nrm_view=m.nrm, match_out=vm.Match.empty(Q, dev, lead), work=work,
             best_pose=se3.Pose(guess.t.clone(), guess.q.clone()),
             best_cost=torch.full(lead, 1e9, **f32), best_matches=torch.zeros(lead, **i32),
             n_matches=torch.zeros(lead, **i32), iters=torch.zeros(lead, **i32),
-            active=torch.ones(lead, dtype=torch.bool, device=dev) if lead else None,
+            stall=torch.zeros(lead, **i32), go=go, active=go if lead else None,
             go_host=go_host, flags=flags)
 
     def round(self, m: vm.VoxelMap, loop: IcpLoop) -> None:
         """One correspondence round on the lanes `loop.active` holds: the
-        round's cost, the best-pose bookkeeping and the Gauss-Newton steps,
-        every result written into the carry; then the exit flags (step norm
-        >= tolerance, improved) copied to `loop.flags` (not waited for)."""
+        round's cost, the best-pose bookkeeping, the stall count and the
+        Gauss-Newton steps, every result written into the carry."""
         cfg, group = self.cfg, self.group
         delta = cfg.icp_huber_delta
         pose, step_norm = loop.pose, loop.step_norm
@@ -269,36 +280,47 @@ class Align:
         cost = cost_sum / torch.clamp_min(round_matches.to(torch.float32), 1.0)
         improved = cost < loop.best_cost * (1.0 - cfg.icp_stall_rel_tolerance)
         active = loop.active
+        stall = torch.where(improved, 0, loop.stall + 1)
         if active is None:
             loop.n_matches.copy_(round_matches)
             loop.iters.add_(1)
+            loop.stall.copy_(stall)
         else:  # a finished lane's carry stays as it is
             improved = improved & active
             torch.where(active, round_matches, loop.n_matches, out=loop.n_matches)
             loop.iters.add_(active)
+            torch.where(active, stall, loop.stall, out=loop.stall)
         torch.where(improved[..., None], pose.t, loop.best_pose.t, out=loop.best_pose.t)
         torch.where(improved[..., None], pose.q, loop.best_pose.q, out=loop.best_pose.q)
         torch.where(improved, round_matches, loop.best_matches, out=loop.best_matches)
         torch.where(improved, cost, loop.best_cost, out=loop.best_cost)
-        _, step_norm = _gn_steps(corr, pose, loop.guess.t, cfg, loop.work, step_norm, active,
-                                 group)
-        tol = constant(float(cfg.icp_convergence_step_norm), torch.float32, step_norm.device)
-        loop.flags.write(torch.stack([step_norm >= tol, improved]))
+        _gn_steps(corr, pose, loop.guess.t, cfg, loop.work, step_norm, active, group)
 
-    def run_rounds(self, loop: IcpLoop, round_fn) -> None:
-        """Rounds until every lane's condition ends: before each, the
-        lanes that run are written to `loop.active` (over lanes, a copy from
-        pinned memory); `round_fn()` enqueues the round (`round`, or the
-        replay of its graph); then the host waits for its flags."""
+    def condition(self, loop: IcpLoop) -> torch.Tensor:
+        """The JAX loop's condition per lane, from the carry, written to
+        `loop.go` (over lanes the next round's `active`): one launch of the
+        condition kernel on the card (kernels/loop.py)."""
+        return loop_condition(loop.iters, loop.stall, loop.step_norm, self.cfg, out=loop.go)
+
+    def run_rounds(self, loop: IcpLoop, round_fn) -> RoundSchedule:
+        """The host loop: rounds until every lane's condition ends. Before
+        each, the lanes that run are written to `loop.active` (over lanes, a
+        copy from pinned memory); `round_fn()` enqueues the round; then its
+        exit flags (step norm >= tolerance, improved, for the lanes that
+        ran) are copied to the host and waited for. Returns the schedule,
+        which holds the host's own count of each lane's rounds and stalls."""
         schedule = RoundSchedule(self.cfg, loop.flags.host.shape[1])
+        tol = constant(float(self.cfg.icp_convergence_step_norm), torch.float32,
+                       loop.step_norm.device)
         while True:
             go = schedule.go()
             if not any(go):
-                return
+                return schedule
             if loop.active is not None:
                 loop.go_host.copy_(torch.tensor(go))
                 loop.active.copy_(loop.go_host, non_blocking=True)
             round_fn()
+            loop.flags.write(torch.stack([loop.step_norm >= tol, loop.stall == 0]))
             loop.flags.mark()
             schedule.advance(go, loop.flags.read())
 

@@ -9,7 +9,8 @@ itself takes the lane axis (pipeline/odometry.py): every tensor carries a
 leading B and every kernel launch serves all B lanes, so one step of B
 scans issues the launches of one scan. On the card that step is captured
 as CUDA graphs (pipeline/graphs.py), as the JAX package jits its batched
-step, except under an sp group, whose rounds hold collectives.
+step, under an sp group too where the group runs on NCCL (its gathers
+captured in the round's graph); under a gloo group it runs eager.
 
 With a mesh (parallel/mesh.py), each rank steps its dp index's B / dp
 lanes on that lane axis (`Mesh.lanes`), and with sp > 1 the ranks of its sp
@@ -48,15 +49,14 @@ def init_batched_state(cfg: OdometryConfig, batch: int, device=None) -> odometry
 
 def make_batched_step(cfg: OdometryConfig, mesh=None):
     """(state_batch, scan_batch) -> (state_batch, diag_batch): one step of
-    every lane, each field with a leading B. With a mesh of sp > 1 the
-    ICP of every lane is shared by the mesh's sp group (the JAX
-    `make_batched_step`) and the step is eager; otherwise it is the
-    captured step (pipeline/graphs.py; eager on CPU tensors). Either way
-    the returned state is valid until the step's next call, which may
-    rewrite it in place; `step.own(state)` keeps it. The caller passes
-    this rank's lanes."""
+    every lane, each field with a leading B: the captured step
+    (pipeline/graphs.py; eager on CPU tensors and under a gloo group). With
+    a mesh of sp > 1 the ICP of every lane is shared by the mesh's sp group
+    (the JAX `make_batched_step`). The returned state is valid until the
+    step's next call, which may rewrite it in place; `step.own(state)`
+    keeps it. The caller passes this rank's lanes."""
     if mesh is not None and mesh.sp.size > 1:
-        return odometry.make_process_scan(cfg, sp_group=mesh.sp)
+        return CapturedStep(cfg, sp_group=mesh.sp)
     return CapturedStep(cfg)
 
 

@@ -41,6 +41,7 @@ mismatched collective raises instead of hanging.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import pickle
 import queue as queue_lib
@@ -89,6 +90,9 @@ def _stream_event(device: torch.device) -> torch.cuda.Event:
     return ev
 
 
+_COUNTS = ("collectives", "gathers", "exchanges", "exchanged_bytes", "staged_bytes")
+
+
 @dataclass
 class CommStats:
     """What one group's collectives cost this process: counts (in
@@ -111,7 +115,13 @@ class CommStats:
     the collective, the wait for the peers included, to its end. They are
     read in `settle()`, which waits for the last event once: call it once
     per scan (as_dict calls it too), never per collective. Otherwise no
-    event is made and they stay 0."""
+    event is made and they stay 0.
+
+    A captured step (pipeline/graphs.py) records no event inside a graph:
+    a graph that holds collectives adds the counts its capture made at
+    every replay (`counts`, `add_counts`), no host ms, and while
+    `device_timing` is on the device ms of the whole replay, the compute
+    around the collectives included, to `graph_device_ms`."""
 
     collectives: int = 0
     gathers: int = 0
@@ -124,6 +134,7 @@ class CommStats:
     exchanged_bytes: int = 0
     staged_bytes: int = 0
     staging_ms: float = 0.0
+    graph_device_ms: float = 0.0
     by_kind: dict = field(default_factory=dict)
     device_timing: bool = False
     # (field, start event, end event) of the device spans not read yet
@@ -135,7 +146,7 @@ class CommStats:
         for f in ("collectives", "gathers", "exchanges", "exchanged_bytes", "staged_bytes"):
             setattr(self, f, 0)
         for f in ("collective_host_ms", "collective_device_ms", "wait_ms", "exchange_host_ms",
-                  "exchange_device_ms", "staging_ms"):
+                  "exchange_device_ms", "staging_ms", "graph_device_ms"):
             setattr(self, f, 0.0)
         self.by_kind = {}
         self.device_timing = device_timing
@@ -156,12 +167,23 @@ class CommStats:
             setattr(self, name, getattr(self, name) + start.elapsed_time(end))
         self.pending = []
 
+    def counts(self) -> dict:
+        """The counts (not the times) so far, `by_kind` copied."""
+        return {f: getattr(self, f) for f in _COUNTS} | {"by_kind": dict(self.by_kind)}
+
+    def add_counts(self, counts: dict) -> None:
+        """Add counts (as `counts` returns them)."""
+        for f in _COUNTS:
+            setattr(self, f, getattr(self, f) + counts[f])
+        for kind, n in counts["by_kind"].items():
+            self.by_kind[kind] = self.by_kind.get(kind, 0) + n
+
     def as_dict(self) -> dict:
         self.settle()
         return {f: getattr(self, f) for f in (
             "collectives", "gathers", "collective_host_ms", "collective_device_ms", "wait_ms",
             "exchanges", "exchange_host_ms", "exchange_device_ms", "exchanged_bytes",
-            "staged_bytes", "staging_ms")} | {"by_kind": dict(self.by_kind)}
+            "staged_bytes", "staging_ms", "graph_device_ms")} | {"by_kind": dict(self.by_kind)}
 
 
 class Group:
@@ -414,6 +436,18 @@ def _to_host(x):
     return x
 
 
+def destroy_process_group() -> None:
+    """Destroy the default group once the garbage is collected: a captured
+    step's graphs that hold the group's NCCL collectives (pipeline/graphs.py)
+    must be gone before its communicators are (with them still alive, two
+    ranks on H100s hung at the group's destruction), and a step's graphs
+    refer to one another, so only a collection frees them."""
+    gc.collect()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
 def _rank_main(fn, rank: int, world_size: int, device_type: str, init_method: str,
                results, args) -> None:
     """One rank: join the group, run fn(*args), send back its result (or
@@ -426,7 +460,7 @@ def _rank_main(fn, rank: int, world_size: int, device_type: str, init_method: st
         try:
             out = _to_host(fn(*args))
         finally:
-            dist.destroy_process_group()
+            destroy_process_group()
         results.put((rank, "ok", pickle.dumps(out)))
     except BaseException:
         results.put((rank, "error", traceback.format_exc()))  # the parent raises it

@@ -180,7 +180,7 @@ def main(argv=None) -> int:
         try:
             report = demo_worker(args.out, args.scans, args.reps, args.width, device)
         finally:
-            dist.destroy_process_group()
+            mesh_lib.destroy_process_group()
         if int(os.environ["RANK"]) == 0:
             print(json.dumps(report))
         return 0

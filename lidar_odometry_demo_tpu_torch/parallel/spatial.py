@@ -51,6 +51,7 @@ from lidar_odometry_demo_tpu_torch.ops import se3
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
 from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan, rows_at
 from lidar_odometry_demo_tpu_torch.pipeline import odometry
+from lidar_odometry_demo_tpu_torch.pipeline.graphs import CapturedStep
 
 
 def column_gx(xyz: torch.Tensor, origin: torch.Tensor, voxel_size: float) -> torch.Tensor:
@@ -101,7 +102,7 @@ def _run_steps(step, state, scans):
     for scan in scans:
         state, diag = step(state, scan)
         diags.append(diag)
-    return state, odometry.stack_diagnostics(diags)
+    return step.own(state), odometry.stack_diagnostics(diags)
 
 
 def make_spatial_step(cfg: OdometryConfig, mesh):
@@ -109,8 +110,10 @@ def make_spatial_step(cfg: OdometryConfig, mesh):
     with the keyframe map column-sharded over the mesh's sp group. The state
     is this rank's shard (init_spatial_state); the scan is the same on
     every rank of the group, and so are the diagnostics (the pose is the
-    group's, map_voxels the shards' sum)."""
-    return odometry.make_process_scan(cfg, spatial_group=mesh.sp)
+    group's, map_voxels the shards' sum). The captured step
+    (pipeline/graphs.py; eager on CPU tensors and on gloo): the returned
+    state is valid until the step's next call, `step.own(state)` keeps it."""
+    return CapturedStep(cfg, spatial_group=mesh.sp)
 
 
 def make_spatial_sequence_runner(cfg: OdometryConfig, mesh):
@@ -133,7 +136,7 @@ def make_batched_spatial_sequence_runner(cfg: OdometryConfig, mesh):
     rank; this rank steps its dp index's L = B / dp lanes
     (`mesh.lanes(B)`), whose shard states (L, ...) it holds
     (init_batched_spatial_state(cfg, L, sp))."""
-    step = odometry.make_process_scan(cfg, spatial_group=mesh.sp)
+    step = CapturedStep(cfg, spatial_group=mesh.sp)
 
     def run(state_b: odometry.OdometryState, scans_b: LidarScan):
         mine = mesh.lanes(scans_b.xyz.shape[1])

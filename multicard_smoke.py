@@ -65,9 +65,17 @@ i. the CLI and the launcher: `fleet --batch 8 --scans 40 --dp 2 --sp 2`
    --nproc-per-node N -m lidar_odometry_demo_tpu_torch.parallel.multihost`,
    whose report must show backend nccl and `max_lane_vs_single_dt` 0.
 
-Each mode prints its per-rank ms/scan (CUDA events), collectives and
-gathers per scan with their host and device ms, exchanged bytes, and (b-f)
-launches per rank per scan, K2e's and `gn_sum_step`'s among them. Prints a
+Every step (b-f, i) is the captured step (pipeline/graphs.py): over NCCL
+the sp and spatial steps too, their rounds replayed from the host with
+one wait each, the round's gathers in its graph (spatial: the halo and
+the sums in the scan's two other graphs). Each mode prints its per-rank
+ms/scan (CUDA events), collectives and gathers per scan with their host
+and device ms (a captured step's collectives are timed by its graphs'
+replays, `graph_device_ms`), exchanged bytes, graph launches and waits
+on the device per scan (b-e: sp and spatial one wait per round and per
+scan two graph launches plus one per round; dp, per step after the
+first, one wait and two graph launches), and (b-f) launches per rank
+per scan, K2e's and `gn_sum_step`'s among them. Prints a
 `kernels` JSON line (each kernel's launches per rank in every mode beside
 its times from this call), each card's name and power limit, then as its
 last line
@@ -191,8 +199,9 @@ def _rank_head(mesh) -> dict:
 
 def _sp_drive(cfg, mesh, scans, counted, sync_ranks) -> dict:
     from lidar_odometry_demo_tpu_torch.pipeline import odometry
+    from lidar_odometry_demo_tpu_torch.pipeline.graphs import CapturedStep
 
-    step = odometry.make_process_scan(cfg, sp_group=mesh.sp)
+    step = CapturedStep(cfg, sp_group=mesh.sp)
     r = smoke._sharded_drive(step, odometry.init_state(cfg, mesh.device), scans, mesh, counted,
                              sync_ranks)
     r.pop("state")
@@ -324,7 +333,7 @@ def card_rank(inputs: str, cfg) -> dict:
             out["d_grid"] = _sp_drive(cfg, grid, bench, counted, dist.barrier)
 
     def spatial_mode():  # e, and h on its step
-        step = odometry.make_process_scan(cfg, spatial_group=sp_mesh.sp)
+        step = spatial.make_spatial_step(cfg, sp_mesh)
         r = smoke._sharded_drive(step, spatial.init_spatial_state(cfg, n, dev), bench, sp_mesh,
                                  counted, dist.barrier)
         shard = r.pop("state").keyframe
@@ -364,8 +373,7 @@ def card_rank(inputs: str, cfg) -> dict:
         torch.cuda.synchronize()
         dist.barrier()
         grid.stats.reset(device_timing=True)
-        for fn in counted.values():
-            fn.launches = 0
+        smoke.zero_counts(counted)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         _, d = run(init(), scans_b)
@@ -374,7 +382,7 @@ def card_rank(inputs: str, cfg) -> dict:
         mine = grid.lanes(lanes)
         out["f"] = dict(t=d.pose.t, lanes=(mine.start, mine.stop), stats=grid.stats.as_dict(),
                         ms_per_scan=start.elapsed_time(end) / len(bench),
-                        launches={k: fn.launches for k, fn in counted.items()})
+                        launches=smoke.read_counts(counted))
 
     def refines():  # g
         _, _, est_t, est_q, closure = smoke.make_noisy_loop(32, 0.03)
@@ -497,7 +505,8 @@ def check_spatial_fleet(fs: list, fleet: dict) -> dict:
         log(f"f. dp = 2 x spatial N = 2, rank {i}: lanes {lo}-{hi - 1}, {f['ms_per_scan']:.3f} "
             f"ms per step of {hi - lo} (CUDA events); collectives "
             f"{st['collectives'] / n_scans:.2f}/step (gathers {st['gathers'] / n_scans:.2f}), "
-            f"device {st['collective_device_ms'] / n_scans:.4f} ms; halo "
+            f"device {st['collective_device_ms'] / n_scans:.4f} ms (captured graphs holding "
+            f"them {st.get('graph_device_ms', 0.0) / n_scans:.4f} ms); halo "
             f"{st['exchanged_bytes'] / n_scans / 1e6:.3f} MB/step, device "
             f"{st['exchange_device_ms'] / n_scans:.4f} ms, host "
             f"{st['exchange_host_ms'] / n_scans:.4f} ms; launches per step {launches}")

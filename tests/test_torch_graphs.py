@@ -1,20 +1,25 @@
 """The captured step's parts (pipeline/graphs.py) on CPU tensors, at TINY.
 
-On the CPU a `_LaneGraphs` calls its three parts where the card replays
-their graphs: (a) the scan's preparation and ICP's start, (b) one ICP
-round, (c) ICP's end, the map update and the diagnostics, on the buffers
-the graphs would read and write, in the replay schedule (the first scans
-through the eager step). Here those segments, composed eagerly, are held to
-the eager step and to the JAX package.
+On the CPU a `_LaneGraphs` calls its three parts where the card launches
+their graphs: (a) the scan's preparation and ICP's start, (b) the WHILE
+node's body, one ICP round and the loop's condition, (c) ICP's end, the
+map update and the diagnostics, on the buffers the graphs would read and
+write, in the graphs' schedule (the first scans through the eager step).
+Here those segments, composed eagerly, are held to the eager step and to
+the JAX package.
 
 Tolerances: the segments bitwise the eager step (`make_process_scan`) on a
 6-scan drive, every diagnostic and the final state, for one sequence, for
 B = 2 lanes and under reference_parity(TINY); against the JAX package's
 `make_sequence_runner` the bar of tests/test_torch_pipeline.py for a TINY
 drive (per-scan poses within 1e-4 m, equal ICP iterations). `active` all
-true bitwise `active=None`. Inside a segment no operation reads the device
-from the host or has an output shape that depends on the data, and every
-segment's outputs keep their shapes and dtypes from scan to scan.
+true bitwise `active=None`. Inside a segment (the body's condition
+included) no operation reads the device from the host or has an output
+shape that depends on the data, and every segment's outputs keep their
+shapes and dtypes from scan to scan. Under an sp and a spatial group (two
+gloo CPU ranks, one `run_ranks` call), the segments of a group's step,
+its rounds driven from the host, bitwise the eager group step on every
+rank, with the same checks inside each segment.
 """
 
 import jax
@@ -34,7 +39,8 @@ from lidar_odometry_demo_tpu_torch.ops import se3
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
 from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
 from lidar_odometry_demo_tpu_torch.ops.cloud import scan_from_numpy as port_scan
-from lidar_odometry_demo_tpu_torch.parallel import batched
+from lidar_odometry_demo_tpu_torch.parallel import batched, spatial
+from lidar_odometry_demo_tpu_torch.parallel import mesh as mesh_lib
 from lidar_odometry_demo_tpu_torch.pipeline import graphs
 from lidar_odometry_demo_tpu_torch.pipeline import odometry as todo
 from lidar_odometry_demo_tpu_torch.utils import checkpoint as tckpt
@@ -96,23 +102,29 @@ def _signature(x):
     return [(tuple(t.shape), t.dtype) for t in graphs._leaves(x)]
 
 
-def composed(cfg, scans, record=False):
+def composed(cfg, scans, record=False, step=None, state=None):
     """The drive through a `_LaneGraphs` on CPU tensors: its segments called
     eagerly in the replay schedule. Returns (final state, stacked
     diagnostics, the _LaneGraphs, per segment the op records and output
-    signatures of every call)."""
+    signatures of every call). `step` and `state`: a group's step and its
+    fresh state (default the plain step's)."""
     lead = tuple(scans[0].xyz.shape[:-2])
-    state = todo.init_state(cfg, "cpu")
-    if lead:
-        state = batched.init_batched_state(cfg, lead[0], "cpu")
-    lg = graphs._LaneGraphs(todo.make_process_scan(cfg), state, scans[0])
+    if state is None:
+        state = todo.init_state(cfg, "cpu")
+        if lead:
+            state = batched.init_batched_state(cfg, lead[0], "cpu")
+    lg = graphs._LaneGraphs(step or todo.make_process_scan(cfg), state, scans[0])
     calls = {"a": [], "b": [], "c": []}
     if record:
+        conditions = []  # the loop's condition, one entry per call
+        condition = lg.step.align.condition
+        lg.step.align.condition = lambda loop: conditions.append(1) or condition(loop)
         for key, name in (("a", "segment_a"), ("b", "segment_b"), ("c", "segment_c")):
             def wrapped(*args, _fn=getattr(lg, name), _key=key):
+                n = len(conditions)
                 with Recorder() as rec:
                     out = _fn(*args)
-                calls[_key].append((rec.ops, _signature(out)))
+                calls[_key].append((rec.ops, _signature(out), len(conditions) - n))
                 return out
             setattr(lg, name, wrapped)
     diags = []
@@ -122,12 +134,13 @@ def composed(cfg, scans, record=False):
     return graphs._map(torch.clone, state), todo.stack_diagnostics(diags), lg, calls
 
 
-def eager(cfg, scans):
+def eager(cfg, scans, step=None, state=None):
     lead = tuple(scans[0].xyz.shape[:-2])
-    state = todo.init_state(cfg, "cpu")
-    if lead:
-        state = batched.init_batched_state(cfg, lead[0], "cpu")
-    step = todo.make_process_scan(cfg)
+    if state is None:
+        state = todo.init_state(cfg, "cpu")
+        if lead:
+            state = batched.init_batched_state(cfg, lead[0], "cpu")
+    step = step or todo.make_process_scan(cfg)
     diags = []
     for scan in scans:
         state, diag = step(state, scan)
@@ -205,19 +218,21 @@ def test_segments_match_jax(runs, drives, case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_segments_read_nothing_and_keep_their_shapes(runs, case):
     """No host read, host-data tensor or data-dependent shape inside a
-    segment (Recorder), and every call of a segment runs the same
-    operations with the same output shapes and dtypes, on scans of
-    different point counts."""
+    segment (Recorder), the WHILE node's body with the loop's condition in
+    it (one condition per body, none in (a) or (c)), and every call of a
+    segment runs the same operations with the same output shapes and
+    dtypes, on scans of different point counts."""
     scans = runs[case]["scans"]
     counts = {int(s.valid.sum()) for s in scans}
     assert len(counts) > 1  # the drive's scans differ in size
     _, _, _, calls = runs[case]["composed"]
     for key, seen in calls.items():
         assert seen, key
-        ops0, sig0 = seen[0]
-        for ops, sig in seen[1:]:
+        ops0, sig0, _ = seen[0]
+        for ops, sig, n_conditions in seen:
             assert ops == ops0, f"segment {key} ran other operations"
             assert sig == sig0, f"segment {key} returned other shapes"
+            assert n_conditions == (key == "b"), f"segment {key}: {n_conditions} conditions"
 
 
 def _round_inputs(drives):
@@ -242,12 +257,12 @@ def test_active_all_true_is_active_none(drives):
     loops[1] = loops[1]._replace(active=None)
     for loop in loops:
         align.round(state.keyframe, loop)
-        assert torch.equal(loop.flags.host, loops[0].flags.host)
+        assert torch.equal(loop.stall, loops[0].stall)
     a, b = loops
     for x, y in ((a.work.poses, b.work.poses), (a.best_pose.t, b.best_pose.t),
                  (a.best_pose.q, b.best_pose.q), (a.best_cost, b.best_cost),
                  (a.best_matches, b.best_matches), (a.n_matches, b.n_matches),
-                 (a.iters, b.iters)):
+                 (a.iters, b.iters), (a.stall, b.stall)):
         assert torch.equal(x, y)
     corr = step.align.begin(state.keyframe, prep.q_xyz, prep.q_valid, prep.guess)
     c = vm.match_candidates(state.keyframe, corr.cand, prep.q_xyz, prep.q_valid,
@@ -308,3 +323,56 @@ def test_own_keeps_a_state_the_next_call_rewrites(drives):
     _assert_bitwise(held, kept)
     assert not torch.equal(state.current.t, kept.current.t)  # the buffers moved on
     assert step.eager.own(kept) is kept
+
+
+GROUP_MODES = ("sp", "spatial")
+
+
+def _group_rank(raw):
+    """One of two gloo CPU ranks: per mode, the segments of the group's step
+    composed eagerly (recorded) and the eager group step over the drive."""
+    torch.set_num_threads(1)
+    mesh = mesh_lib.make_mesh(1, 2, device="cpu")
+    scans = _scans(raw)
+    out = {}
+    for mode in GROUP_MODES:
+        kw = {f"{mode}_group": mesh.sp}
+
+        def init(mode=mode):
+            if mode == "sp":
+                return todo.init_state(TINY, "cpu")
+            return spatial.init_spatial_state(TINY, mesh.sp.size, "cpu")
+
+        got = composed(TINY, scans, record=True, step=todo.make_process_scan(TINY, **kw),
+                       state=init())
+        want = eager(TINY, scans, step=todo.make_process_scan(TINY, **kw), state=init())
+        state, diag, lg, calls = got
+        out[mode] = dict(got=(state, diag), want=want, eager_scans=lg.eager_scans,
+                         grouped=lg.grouped, calls=calls)
+    return out
+
+
+@pytest.fixture(scope="module")
+def group_runs(drives):
+    return mesh_lib.run_ranks(_group_rank, 2, drives[3], device="cpu", timeout=300.0)
+
+
+@pytest.mark.parametrize("mode", GROUP_MODES)
+def test_group_segments_are_the_eager_group_step(group_runs, mode):
+    """Under an sp and a spatial group (two gloo CPU ranks), the segments
+    of the group's step composed eagerly, its rounds driven from the host,
+    bitwise the eager group step on each rank; no host read or
+    data-dependent shape inside a segment, the same operations every call,
+    and (b) once per round with no condition in it."""
+    for r in group_runs:
+        run = r[mode]
+        assert run["grouped"] and run["eager_scans"] == graphs.WARM_UP_SCANS
+        (state, diag), (e_state, e_diag) = run["got"], run["want"]
+        _assert_bitwise(diag, e_diag)
+        _assert_bitwise(state, e_state)
+        calls = run["calls"]
+        assert len(calls["b"]) == int(diag.icp_iterations[graphs.WARM_UP_SCANS:].sum())
+        for key, seen in calls.items():
+            ops0, sig0, _ = seen[0]
+            for ops, sig, n_conditions in seen:
+                assert ops == ops0 and sig == sig0 and n_conditions == 0, key

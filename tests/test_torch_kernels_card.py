@@ -219,6 +219,15 @@ def test_wrappers_check_their_inputs_on_card(rng):
                               max_points=20)
 
 
+def _counts() -> tuple:
+    """K1, K2 and K3's launch counters, the captured loops' rounds added
+    (pipeline/graphs.py settle_launches)."""
+    from lidar_odometry_demo_tpu_torch.pipeline import graphs
+
+    graphs.settle_launches()
+    return match_rows.launches, jtwj_accumulate.launches, search_sorted.launches
+
+
 def _drive_cpu_and_card(cfg, n_scans=5):
     d = simulate_sequence(num_scans=n_scans, width=TINY.scan_width, seed=3, speed=2.0,
                           yaw_rate=0.05, ramp_time=0.0)
@@ -226,10 +235,9 @@ def _drive_cpu_and_card(cfg, n_scans=5):
     for dev in ("cpu", "cuda"):
         scans = [scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
                                  TINY.max_raw_points, dev) for s in d.scans]
-        before = (match_rows.launches, jtwj_accumulate.launches, search_sorted.launches)
+        before = _counts()
         _, diag = odometry.make_sequence_runner(cfg)(odometry.init_state(cfg, dev), scans)
-        launched = (match_rows.launches - before[0], jtwj_accumulate.launches - before[1],
-                    search_sorted.launches - before[2])
+        launched = tuple(x - b for x, b in zip(_counts(), before))
         runs[dev] = (diag.pose.t.cpu().numpy(), diag.icp_iterations.cpu().numpy(), launched)
     (t_cpu, it_cpu, _), (t_gpu, it_gpu, launched) = runs["cpu"], runs["cuda"]
     np.testing.assert_allclose(t_gpu, t_cpu, atol=1e-4, rtol=0)
@@ -711,11 +719,10 @@ def test_tiny_fleet_on_card_matches_cpu():
                                   TINY.max_raw_points, dev) for s in d.scans] for d in drives]
         scans_b = LidarScan(*(torch.stack([torch.stack([getattr(lane[i], f) for lane in lanes])
                                            for i in range(5)]) for f in LidarScan._fields))
-        before = (match_rows.launches, jtwj_accumulate.launches, search_sorted.launches)
+        before = _counts()
         state, diag = batched.make_batched_sequence_runner(TINY)(
             batched.init_batched_state(TINY, 3, dev), scans_b)
-        launched = (match_rows.launches - before[0], jtwj_accumulate.launches - before[1],
-                    search_sorted.launches - before[2])
+        launched = tuple(x - b for x, b in zip(_counts(), before))
         runs[dev] = (state, diag, launched)
     (s_cpu, d_cpu, _), (s_gpu, d_gpu, launched) = runs["cpu"], runs["cuda"]
     np.testing.assert_allclose(d_gpu.pose.t.cpu().numpy(), d_cpu.pose.t.numpy(), atol=1e-4, rtol=0)
@@ -765,12 +772,11 @@ def test_tiny_run_live_on_card_matches_cpu():
     for dev in ("cpu", "cuda"):
         odo = odometry.LidarOdometry(TINY, device=dev)
         ts, iters = [], []
-        before = (match_rows.launches, jtwj_accumulate.launches, search_sorted.launches)
+        before = _counts()
         n = live.run_live(odo, iter(packets), flush_partial=True,
                           on_scan=lambda i, t, diag: (ts.append(t),
                                                       iters.append(int(diag.icp_iterations))))
-        launched = (match_rows.launches - before[0], jtwj_accumulate.launches - before[1],
-                    search_sorted.launches - before[2])
+        launched = tuple(x - b for x, b in zip(_counts(), before))
         runs[dev] = (n, np.stack(ts), np.array(iters), launched)
     (n_cpu, t_cpu, it_cpu, _), (n_gpu, t_gpu, it_gpu, launched) = runs["cpu"], runs["cuda"]
     assert n_cpu == n_gpu == 6
