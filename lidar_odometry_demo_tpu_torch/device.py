@@ -12,6 +12,8 @@ from collections.abc import Hashable
 import numpy as np
 import torch
 
+from lidar_odometry_demo_tpu_torch.utils import profiling
+
 # TF32 keeps ~10 mantissa bits: Hopper's version of the bf16-on-MXU trap the
 # JAX package documents (ops/icp.py _rot_pts, ops/pallas/jtwj.py). Geometry
 # stays exact float32 everywhere in the port.
@@ -79,7 +81,8 @@ class HostFlags:
     capture), and `read` waits for that and returns the values as lists.
     `write` takes any tensor of the buffer's size, in the buffer's shape.
     Each wait on the device counts in `HostFlags.waits`: the step's
-    synchronising calls, which torch's sync debug mode does not see."""
+    synchronising calls, which torch's sync debug mode does not see; with
+    spans on, each is a `step.wait` span (utils/profiling.py)."""
 
     waits = 0
 
@@ -97,6 +100,10 @@ class HostFlags:
 
     def read(self) -> list:
         if self.event is not None:
+            if profiling.ON:
+                profiling.wait_begin()
             self.event.synchronize()
             HostFlags.waits += 1
+            if profiling.ON:
+                profiling.wait_end()
         return self.host.tolist()

@@ -31,6 +31,7 @@ from lidar_odometry_demo_tpu_torch.config import OdometryConfig
 from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
 from lidar_odometry_demo_tpu_torch.pipeline import odometry
 from lidar_odometry_demo_tpu_torch.pipeline.graphs import CapturedStep
+from lidar_odometry_demo_tpu_torch.utils import profiling
 
 
 def init_batched_state(cfg: OdometryConfig, batch: int, device=None) -> odometry.OdometryState:
@@ -80,9 +81,18 @@ def make_batched_sequence_runner(cfg: OdometryConfig, mesh=None):
                              f"rank steps {scans_b.xyz.shape[1]}")
         diags = []
         for s in range(scans_b.xyz.shape[0]):
+            if profiling.ON:
+                profiling.begin("fleet.step")
             state_b, diag = step(state_b, LidarScan(*(x[s] for x in scans_b)))
             diags.append(diag)
-        return step.own(state_b), odometry.stack_diagnostics(diags)
+            if profiling.ON:
+                profiling.end()
+        if profiling.ON:
+            profiling.begin("fleet.collect", "dev.collect")
+        out = step.own(state_b), odometry.stack_diagnostics(diags)
+        if profiling.ON:
+            profiling.end(dev_end=True)
+        return out
 
     return run
 

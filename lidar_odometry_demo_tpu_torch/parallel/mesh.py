@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from lidar_odometry_demo_tpu_torch.device import resolve_device
+from lidar_odometry_demo_tpu_torch.utils.profiling import PendingSpans
 
 GROUP_TIMEOUT_S = 120.0
 
@@ -113,8 +114,10 @@ class CommStats:
     on the rank's current stream just before the call and just after it
     (after the stream's wait for NCCL's), the time from the stream reaching
     the collective, the wait for the peers included, to its end. They are
-    read in `settle()`, which waits for the last event once: call it once
-    per scan (as_dict calls it too), never per collective. Otherwise no
+    kept as the span recorder's device spans are (utils/profiling.py
+    `PendingSpans`) and read in `settle()`, which waits for the last event
+    once: call it once per scan (as_dict calls it too), never per
+    collective. Otherwise no
     event is made and they stay 0.
 
     A captured step (pipeline/graphs.py) records no event inside a graph:
@@ -138,7 +141,7 @@ class CommStats:
     by_kind: dict = field(default_factory=dict)
     device_timing: bool = False
     # (field, start event, end event) of the device spans not read yet
-    pending: list = field(default_factory=list, repr=False)
+    pending: PendingSpans = field(default_factory=PendingSpans, repr=False)
 
     def reset(self, device_timing: bool = False) -> None:
         """Every count and time to 0; device spans taken from now on only
@@ -150,22 +153,18 @@ class CommStats:
             setattr(self, f, 0.0)
         self.by_kind = {}
         self.device_timing = device_timing
-        self.pending = []
+        self.pending = PendingSpans()
 
     def add_span(self, name: str, start, end) -> None:
         """Keep a device span (start, end events) for `name` (the field of
         device ms it adds to) until the next settle()."""
-        self.pending.append((name, start, end))
+        self.pending.add(name, start, end)
 
     def settle(self) -> None:
         """Wait for the last pending span's end and add every pending span's
         device ms to its field."""
-        if not self.pending:
-            return
-        self.pending[-1][2].synchronize()
-        for name, start, end in self.pending:
+        for name, start, end in self.pending.take(wait=True):
             setattr(self, name, getattr(self, name) + start.elapsed_time(end))
-        self.pending = []
 
     def counts(self) -> dict:
         """The counts (not the times) so far, `by_kind` copied."""

@@ -61,6 +61,13 @@ rounds the device ran are not known on the host: `settle_launches()` reads
 each loop's round total on the device and adds the body's launches that
 many times (and one condition each). A caller calls it before it reads or
 zeroes a counter, never once per scan.
+
+Spans (utils/profiling.py; off by default): a call marks its stages as
+host spans (`step.copy_in`, `step.capture`, `step.replay_a`,
+`step.launch_loop`, `step.clone_diag`, `step.eager`; a host wait is
+`step.wait`) and as device stages between CUDA events recorded outside
+the graphs (`dev.copy_in`, `dev.a`, `dev.loop`: the rounds and (c),
+`dev.clone_diag`, `dev.eager`).
 """
 
 from __future__ import annotations
@@ -80,6 +87,7 @@ from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
 from lidar_odometry_demo_tpu_torch.parallel.mesh import CommStats
 from lidar_odometry_demo_tpu_torch.pipeline.odometry import (
     OdometryState, ScanStep, make_process_scan)
+from lidar_odometry_demo_tpu_torch.utils import profiling
 
 # eager scans of each lane count before the capture
 WARM_UP_SCANS = 2
@@ -347,6 +355,8 @@ class _LaneGraphs:
         # known before (a) is queued: a state copied in, a capture; a group's
         # step selects on the device and tests nothing on the host
         initialized = True if self.grouped else None
+        if profiling.ON:
+            profiling.begin("step.copy_in", "dev.copy_in")
         if any(d is not s for d, s in zip(_leaves(self.state), _leaves(state))):
             copy_state(self.state, state)
             if not self.grouped:
@@ -354,23 +364,46 @@ class _LaneGraphs:
                 initialized = self._all_initialized()
         for d, s in zip(self.scan, scan):
             d.copy_(s, non_blocking=True)
+        if profiling.ON:
+            profiling.end()
         if self.segments is None and self.eager_scans >= WARM_UP_SCANS and (
                 initialized if initialized is not None else self._all_initialized()):
+            if profiling.ON:
+                profiling.device_end()
+                profiling.begin("step.capture")
             self._capture()
+            if profiling.ON:
+                profiling.end()
             initialized = True
         if self.segments is not None and initialized is not False:
+            if profiling.ON:
+                profiling.begin("step.replay_a", "dev.a")
             self.segments[0].replay()  # queued before the host waits for the first-scan test
+            if profiling.ON:
+                profiling.end(dev_end=True)
             if initialized or self._all_initialized():
+                if profiling.ON:
+                    profiling.begin("step.launch_loop", "dev.loop")
                 self._run_loop()
                 if not self.grouped:
                     self.initialized.mark()
-                return self.state, _map(torch.clone, self.segments[2].out)
+                if profiling.ON:
+                    profiling.end()
+                    profiling.begin("step.clone_diag", "dev.clone_diag")
+                diag = _map(torch.clone, self.segments[2].out)
+                if profiling.ON:
+                    profiling.end(dev_end=True)
+                return self.state, diag
+        if profiling.ON:
+            profiling.begin("step.eager", "dev.eager")
         new, diag = self.step(self.state, self.scan)
         diag = _map(torch.clone, diag)  # it may hold the buffers' pose (a first scan's)
         copy_state(self.state, new)
         if not self.grouped:
             self._publish()
         self.eager_scans += 1
+        if profiling.ON:
+            profiling.end(dev_end=True)
         return self.state, diag
 
 

@@ -44,6 +44,7 @@ from lidar_odometry_demo_tpu_torch.ops import classifier, icp, preprocess, se3
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
 from lidar_odometry_demo_tpu_torch.ops.cloud import (
     LidarScan, PointsWithNormals, scan_from_numpy)
+from lidar_odometry_demo_tpu_torch.utils import profiling
 
 
 class OdometryState(NamedTuple):
@@ -354,14 +355,22 @@ class LidarOdometry:
         return self.process_scan(scan)
 
     def process_scan(self, scan: LidarScan) -> StepDiagnostics:
+        if profiling.ON:
+            profiling.begin("odometry.scan")
         self._state, diag = self._step(self._state, scan)
         self._last_diag = diag
+        if profiling.ON:
+            profiling.end()
         return diag
 
     def get_current_pose(self) -> tuple[np.ndarray, np.ndarray]:
         """(translation, quaternion wxyz) — reference getCurrentPose(); one
         device read."""
+        if profiling.ON:
+            profiling.begin("odometry.pose_read", "dev.pose_read")
         tq = torch.cat([self._state.current.t, self._state.current.q]).cpu().numpy()
+        if profiling.ON:
+            profiling.end(dev_end=True)
         return tq[:3], tq[3:]
 
     def get_keyframe_cloud(self) -> np.ndarray:

@@ -135,19 +135,24 @@ def test_presets_match_the_jax_presets(name):
 
 
 def test_profiling_helpers_on_cpu(tmp_path):
-    timer = profiling.StageTimer()
-    x = torch.ones(4)
-    for _ in range(2):
-        with timer.stage("sum", sync=(x, {"y": [x]})):
-            x = x + 1
-    assert timer.counts["sum"] == 2 and "sum" in timer.summary()
+    """The CLI's scans/s counter, and a recorder span under torch.profiler:
+    its name is a range of the exported trace, and the span is drained."""
     rate = profiling.ScanRateCounter(window=3)
     assert rate.tick() == 0.0
     assert all(rate.tick() > 0 for _ in range(4)) and len(rate.stamps) == 3
-    with profiling.trace(str(tmp_path / "tr")):
-        with profiling.annotate("region"):
+    profiling.enable("cpu")
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            profiling.begin("odometry.scan")
             torch.ones(8).sum()
-    assert "region" in (tmp_path / "tr" / "trace.json").read_text()
+            profiling.end()
+    finally:
+        profiling.disable()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    assert '"odometry.scan"' in (tmp_path / "trace.json").read_text()
+    spans = profiling.drain()
+    assert [(s.name, s.scan) for s in spans.host] == [("odometry.scan", 0)]
+    assert spans.device == [] and profiling.drain().host == []
 
 
 def test_cli_fleet_matches_the_jax_cli(tmp_path, capsys, monkeypatch, tiny_yaml):
