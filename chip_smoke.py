@@ -38,7 +38,12 @@ Phases, each of which raises (non-zero exit) on failure:
    map_update, the condition once per captured scan and once per round), if
    aligned ATE against ground truth exceeds 0.03 m or is not within 1e-4 m
    of 0.00936 m (the JAX package's and the port's earlier runs), or if any
-   scan diverged;
+   scan diverged, or unless the step's front end ran once a scan. Then the
+   front end (kernels/prepare.cu) against its plain version, bitwise (every
+   output; the normals on planar cells), on the drive's scans 2-39 deskewed
+   between phase 3's poses, at B = 1 and at B = 8 (each lane its B = 1
+   call), two calls equal and four device operations a call; CUDA event
+   times of both at B = 1 and 8 beside the bound;
 4. K3's three modes against their plain versions on the card, bitwise: the
    neighbourhood lookup (base and n_present everywhere, every present
    candidate row) and map_update's group lookup (pos_c, found), recorded
@@ -748,15 +753,18 @@ def check_loop_condition(rng, device) -> dict:
 # --------------------------------------------------------------------------
 
 def counters() -> dict:
-    """The launch-counted kernel wrappers, by kernel name: K1, K2, K3 and
-    the ICP loop's condition (which only the captured step launches)."""
+    """The launch-counted kernel wrappers, by kernel name: K1, K2, K3, the
+    ICP loop's condition (which only the captured step launches) and the
+    step's front end (one count a step, of four launches)."""
     from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
     from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate
     from lidar_odometry_demo_tpu_torch.kernels.loop import loop_condition
+    from lidar_odometry_demo_tpu_torch.kernels.prepare import prepare
     from lidar_odometry_demo_tpu_torch.kernels.search import search_sorted
 
     return {"match_rows": match_rows, "jtwj_accumulate": jtwj_accumulate,
-            "search_sorted": search_sorted, "loop_condition": loop_condition}
+            "search_sorted": search_sorted, "loop_condition": loop_condition,
+            "prepare": prepare}
 
 
 def zero_counts(counted: dict | None = None) -> None:
@@ -867,6 +875,9 @@ def drive_path(name: str, cfg, bench: dict, device, *, ate_gt=None, ate_ref_max=
     if launches["jtwj_accumulate"] != cfg.icp_inner_iterations * rounds:
         raise AssertionError(
             f"{name}: K2 launches {launches['jtwj_accumulate']} != 4 x ICP rounds {rounds}")
+    if launches["prepare"] != num_scans:
+        raise AssertionError(f"{name}: front-end calls {launches['prepare']} != scans "
+                             f"{num_scans} (one a step, eager or captured)")
     # a fresh LidarOdometry: the warm-up scans eager, the rest captured
     want_loop = loop_schedule(iters, WARM_UP_SCANS)
     if launches["loop_condition"] != want_loop:
@@ -924,6 +935,100 @@ def run_reference_parity(bench: dict, device):
         raise AssertionError(f"reference_parity path: K3 launches {launches['search_sorted']}"
                              f" != ICP rounds + map_update calls {want}")
     return odo, launches, diags
+
+
+def _front_end_diffs(got, want) -> list:
+    """The outputs of two front-end calls that differ bitwise (the normals
+    compared on planar cells: the kernel leaves cells outside the normals
+    window at zero, where the plain version computes from wrapped rows)."""
+    v = want.planar.valid
+    pairs = dict(valid=(got.planar.valid, v), xyz=(got.planar.xyz, want.planar.xyz),
+                 normal=(got.planar.normal[v], want.planar.normal[v]),
+                 num_planar=(got.num_planar, want.num_planar),
+                 update_keys=(got.update_keys, want.update_keys),
+                 match_keys=(got.match_keys, want.match_keys),
+                 guess_t=(got.guess.t, want.guess.t), guess_q=(got.guess.q, want.guess.q),
+                 deskewed_xyz=(got.deskewed_xyz, want.deskewed_xyz))
+    return [k for k, (a, b) in pairs.items() if not _bitwise(a, b)]
+
+
+def check_prepare(bench: dict, diags: list, device) -> dict:
+    """Phase 3's front end (kernels/prepare.cu: ScanStep.prepare up to the
+    downsample sorts) against its plain version on the card, bitwise (every
+    output, the normals on planar cells), on the bench drive's scans 2-39
+    deskewed between the main path's poses as the step did, at B = 1 and at
+    B = 8 (scans 32-39 as lanes); each lane of the B = 8 call bitwise its
+    B = 1 call; two calls bitwise equal; four device operations a call under
+    torch.profiler. CUDA event times of the kernel and its plain version at
+    B = 1 and 8, beside the bound (bytes: the raw scan read, the image's
+    points, normals, mask and two key arrays written)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.kernels.prepare import prepare, prepare_plain
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
+    from lidar_odometry_demo_tpu_torch.ops.se3 import Pose
+
+    cfg = OdometryConfig()
+    scans, poses = bench["scans"], [d.pose for d in diags]
+
+    def args_at(idx):
+        """(previous, current, scan, cfg, return_deskewed) of scan idx, or
+        of the scans in list idx as lanes."""
+        if isinstance(idx, int):
+            return poses[idx - 2], poses[idx - 1], scans[idx], cfg, True
+        prev = Pose(*(torch.stack([getattr(poses[i - 2], f) for i in idx]) for f in Pose._fields))
+        cur = Pose(*(torch.stack([getattr(poses[i - 1], f) for i in idx]) for f in Pose._fields))
+        raw = LidarScan(*(torch.stack([getattr(scans[i], f) for i in idx])
+                          for f in LidarScan._fields))
+        return prev, cur, raw, cfg, True
+
+    before = prepare.launches
+    for s in range(2, len(scans)):
+        got = prepare(*args_at(s))
+        bad = _front_end_diffs(got, prepare_plain(*args_at(s)))
+        if bad:
+            raise AssertionError(f"front end, bench scan {s}: {bad} differ from the plain version")
+    lanes8 = list(range(len(scans) - 8, len(scans)))
+    a1, a8 = args_at(lanes8[-1]), args_at(lanes8)
+    got8 = prepare(*a8)
+    bad = _front_end_diffs(got8, prepare_plain(*a8))
+    bad += _front_end_diffs(got8, prepare(*a8))
+    for b, s in enumerate(lanes8):
+        one = prepare(*args_at(s))
+        bad += [f"lane {b}: {k}" for k in _front_end_diffs(_lane(got8, b), one)]
+    if bad:
+        raise AssertionError(f"front end at B = 8: {bad} differ")
+    calls = prepare.launches - before
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            prepare(*a1)
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+    if ops != 40:
+        raise AssertionError(f"front end: {ops} device operations in 10 calls (4 a call asked)")
+    N, RW = cfg.max_raw_points, cfg.num_rings * cfg.scan_width
+    out = {}
+    for B, a in ((1, a1), (8, a8)):
+        out[B] = dict(ms=time_ms(lambda a=a: prepare(*a), 200),
+                      plain_ms=time_ms(lambda a=a: prepare_plain(*a), 20),
+                      # raw xyz, ring, time, valid (21 bytes a point) in; the
+                      # image's xyz, normal, mask, two keys (33 a cell) out;
+                      # ~80 operations a point (deskew, cell), ~135 a cell
+                      bound=bound_ms(B * (21 * N + 33 * RW), B * (80 * N + 135 * RW)))
+    b1, b8 = out[1], out[8]
+    log(f"kernel prepare (the step's front end): bitwise its plain version on {len(scans) - 2} "
+        f"bench scans at B = 1 and on 8 lanes at B = 8 (every lane its B = 1 call), two calls "
+        f"equal, {calls} calls, 4 device operations a call; {b1['ms']:.4f} / {b8['ms']:.4f} ms "
+        f"at B = 1 / 8, plain {b1['plain_ms']:.4f} / {b8['plain_ms']:.4f} ms, bound "
+        f"{b1['bound'][0]:.5f} / {b8['bound'][0]:.5f} ms ({b1['bound'][1]})")
+    return dict(name="prepare", route="cuda",
+                source="lidar_odometry_demo_tpu_torch/kernels/prepare.cu", replaces=None,
+                max_abs_err=0.0, ms=b1["ms"], plain_ms=b1["plain_ms"], bound_ms=b1["bound"][0],
+                bound_by=b1["bound"][1], library_ms=None, ms_b8=b8["ms"],
+                plain_ms_b8=b8["plain_ms"], bound_ms_b8=b8["bound"][0], device_ops_per_call=4)
 
 
 # --------------------------------------------------------------------------
@@ -1314,7 +1419,8 @@ def run_fleet(bench: dict, main_diags: list, main_odo, single_ms: float, device)
         raise AssertionError(f"fleet path: {diverged} lane scans diverged")
     # the runner's step is captured already: only the fresh state's first step is eager
     want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
-            "search_sorted": icp_steps + S, "loop_condition": loop_schedule(iters, 1)}
+            "search_sorted": icp_steps + S, "loop_condition": loop_schedule(iters, 1),
+            "prepare": S}
     if launches != want:
         raise AssertionError(f"fleet path: launches {launches} != the schedule {want}")
     return dict(launches=launches, state=state, scans=scans_b, diags=diags, ms_per_step=ms_step,
@@ -1841,7 +1947,7 @@ def run_live_path(bench: dict, main_diags: list, main_ms: float, device) -> dict
     rounds = int(iters.sum())
     want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
             "search_sorted": int(np.sum(iters > 0)) + n,
-            "loop_condition": loop_schedule(iters, WARM_UP_SCANS)}
+            "loop_condition": loop_schedule(iters, WARM_UP_SCANS), "prepare": n}
     log(f"live: {d_free_t:.3g} m / {d_free_q:.3g} from the socket-free run over the same "
         f"packets, {d_main:.5f} m from the main path (phase 3), aligned ATE {ate:.5f} m vs "
         f"ground truth, diverged {diverged}, mean ICP rounds {rounds / max(n - 1, 1):.2f}, "
@@ -2610,7 +2716,7 @@ def _split_schedule(label: str, rs: list, n_scans: int) -> None:
         rounds = by_kind.get("matches,cost", 0)
         want = {"match_rows": rounds, "jtwj_accumulate": rounds,
                 "gn_sum_step": (inner - 1) * rounds, "gn_epilogue": rounds,
-                "search_sorted": 2 * n_scans, "loop_condition": 0}
+                "search_sorted": 2 * n_scans, "loop_condition": 0, "prepare": n_scans}
         if r["launches"] != want or by_kind.get("H,b", 0) != inner * rounds:
             raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the split "
                                  f"schedule {want}, or {by_kind.get('H,b', 0)} gathers of H and "
@@ -2788,7 +2894,7 @@ def check_dp_ranks(label: str, rs: list, fleet: dict) -> dict:
         want = {"match_rows": rounds, "jtwj_accumulate": inner * rounds, "gn_sum_step": 0,
                 "gn_epilogue": 0,
                 "search_sorted": int(np.sum(r["iters"].max(axis=1) > 0)) + n_scans,
-                "loop_condition": loop_schedule(r["iters"], 1)}
+                "loop_condition": loop_schedule(r["iters"], 1), "prepare": n_scans}
         if r["launches"] != want:
             raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the batched "
                                  f"schedule {want}")
@@ -3080,6 +3186,7 @@ def main() -> int:
     split_kernels = check_gathered_step(np.random.default_rng(7), device)
     bench = bench_drive(device)
     odo, launches, main_diags, single_ms = run_main_path(bench, device)
+    kernels.append(check_prepare(bench, main_diags, device))
     kernels.append(check_search(device, path_lookups(odo, bench["scans"][-1])))
     parity_odo, parity, parity_diags = run_reference_parity(bench, device)
     check_lookups("reference_parity path's map", path_lookups(parity_odo, bench["scans"][-1]))

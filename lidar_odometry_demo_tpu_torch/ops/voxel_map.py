@@ -215,9 +215,18 @@ def _group_structure(sorted_keys: torch.Tensor):
 # lidar_odometry.cpp:37-47)
 # ---------------------------------------------------------------------------
 
-def downsample(pts: PointsWithNormals, voxel_size: float, budget: int):
+def grid_keys(pts: PointsWithNormals, voxel_size: float) -> torch.Tensor:
+    """A downsampling grid's packed keys of `pts`: scan-local (zero origin)."""
+    zero_origin = torch.zeros((3,), dtype=torch.int32, device=pts.xyz.device)
+    return pack_keys(voxel_indices(pts.xyz, voxel_size), zero_origin, pts.valid)
+
+
+def downsample(pts: PointsWithNormals, voxel_size: float, budget: int,
+               keys: torch.Tensor | None = None):
     """One point per voxel, the first in input order (voxel_grid.h:77-93),
     compacted to a fixed `budget` in key order. Scan-local (zero origin).
+    `keys`: the points' packed keys at `voxel_size` where the caller has
+    them (the step's front end, kernels/prepare.py), else computed here.
 
     Returns (points, dropped): dropped is the number of voxel leaders beyond
     the budget (int32, per lane); the kept leaders are the `budget` smallest
@@ -228,8 +237,8 @@ def downsample(pts: PointsWithNormals, voxel_size: float, budget: int):
     lead = pts.valid.shape[:-1]
     take = min(budget, n)
     pad = budget - take
-    zero_origin = torch.zeros((3,), dtype=torch.int32, device=dev)
-    keys = pack_keys(voxel_indices(pts.xyz, voxel_size), zero_origin, pts.valid)
+    if keys is None:
+        keys = grid_keys(pts, voxel_size)
     sorted_keys, order = torch.sort(keys, dim=-1, stable=True)  # ties keep input order
     leader, _, _ = _group_structure(sorted_keys)
     n_leaders = torch.sum(leader, dim=-1, dtype=torch.int32)

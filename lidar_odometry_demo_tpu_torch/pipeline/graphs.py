@@ -6,9 +6,9 @@ The eager step (pipeline/odometry.py `ScanStep`) issues ~1,400 launches
 per scan from Python. `CapturedStep` captures its parts once, as three
 graphs that share one memory pool:
 
-  (a) `prepare` (time-normalize .. the two downsample grids and the guess)
-      and ICP's `begin` (K3's neighbourhood lookup on the cached path, the
-      loop's carry);
+  (a) `prepare` (the fused front end, kernels/prepare.py, then the two
+      downsample grids) and ICP's `begin` (K3's neighbourhood lookup on
+      the cached path, the loop's carry);
   (b) one ICP round (`Align.round`: K1, on the exact path K3 before it,
       the round's cost, the best-pose and stall bookkeeping, the four K2
       steps);
@@ -81,6 +81,7 @@ from lidar_odometry_demo_tpu_torch.device import HostFlags
 from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import gn_epilogue, gn_sum_step, jtwj_accumulate
 from lidar_odometry_demo_tpu_torch.kernels.loop import LoopGraph, loop_condition
+from lidar_odometry_demo_tpu_torch.kernels.prepare import prepare
 from lidar_odometry_demo_tpu_torch.kernels.search import search_sorted
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
 from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
@@ -92,7 +93,7 @@ from lidar_odometry_demo_tpu_torch.utils import profiling
 # eager scans of each lane count before the capture
 WARM_UP_SCANS = 2
 # the launch-counted kernel wrappers of the step
-COUNTED = (match_rows, jtwj_accumulate, gn_sum_step, gn_epilogue, search_sorted)
+COUNTED = (match_rows, jtwj_accumulate, gn_sum_step, gn_epilogue, search_sorted, prepare)
 # the loop graphs launched since the last settle_launches, each with its
 # body's captured launches (held past their step's life: a few bytes each)
 _UNSETTLED: dict[int, tuple] = {}

@@ -26,7 +26,9 @@ bitwise equal to their plain versions (base and n_present everywhere, the
 present candidate rows, pos_c and found); the TINY drives on the card (default and
 reference_parity) within 1e-4 m of the same drive through the port on the
 CPU, with equal ICP iteration counts and launch counts equal to the
-schedule.
+schedule; the step's front end (kernels/prepare.py) bitwise its plain
+version on the card, every output (the normals on planar cells), on drive
+scans and on tests/_prepare_cases.py's edge scans.
 """
 
 import numpy as np
@@ -834,3 +836,139 @@ def test_refine_on_card_matches_cpu(solver):
     rms = lambda t: np.sqrt(np.mean(np.sum((t - gt_t) ** 2, -1)))  # noqa: E731
     assert rms(t_g) < 0.5 * rms(est_t)
     np.testing.assert_allclose(t_g[0], est_t[0], atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the step's front end (kernels/prepare.py)
+# ---------------------------------------------------------------------------
+
+_FRONT_END_DRIVES: dict = {}
+_FRONT_END_CONFIGS = {"full": OdometryConfig(), "tiny": TINY,
+                      "parity": reference_parity(OdometryConfig())}
+
+
+def _front_end_cases(shape: str, lanes: int) -> list:
+    """`lanes` (scan, previous, current) of a 5-scan drive, cycled."""
+    cfg = _FRONT_END_CONFIGS[shape]
+    key = (cfg.scan_width, cfg.max_raw_points)
+    if key not in _FRONT_END_DRIVES:
+        from _prepare_cases import drive_scans
+
+        _FRONT_END_DRIVES[key] = drive_scans(cfg, 5, seed=21)
+    cases = _FRONT_END_DRIVES[key]
+    return [cases[b % len(cases)] for b in range(lanes)]
+
+
+def _front_end_args(cases: list, lead: bool, device):
+    """(previous, current, raw) on `device`, with a lane axis where `lead`."""
+    def field(get):
+        xs = [torch.from_numpy(np.ascontiguousarray(get(c))).to(device) for c in cases]
+        return torch.stack(xs) if lead else xs[0]
+
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
+
+    raw = LidarScan(*(field(lambda c, f=f: c[0][f]) for f in LidarScan._fields))
+    return (Pose(field(lambda c: c[1][0]), field(lambda c: c[1][1])),
+            Pose(field(lambda c: c[2][0]), field(lambda c: c[2][1])), raw)
+
+
+def _assert_front_end_equal(got, want):
+    """Bitwise, every output; the normals on planar cells (outside the
+    normals window the kernel writes zeros where the plain version computes
+    from wrapped rows, and no reader takes them)."""
+    v = want.planar.valid
+    assert torch.equal(got.planar.valid, v)
+    assert torch.equal(got.planar.xyz, want.planar.xyz)
+    assert torch.equal(got.planar.normal[v], want.planar.normal[v])
+    assert torch.equal(got.num_planar, want.num_planar)
+    assert torch.equal(got.update_keys, want.update_keys)
+    assert torch.equal(got.match_keys, want.match_keys)
+    assert torch.equal(got.guess.t, want.guess.t) and torch.equal(got.guess.q, want.guess.q)
+    assert torch.equal(got.deskewed_xyz, want.deskewed_xyz)
+
+
+@pytest.mark.parametrize("lanes", [0, 1, 3, 8], ids=["one", "B1", "B3", "B8"])
+@pytest.mark.parametrize("shape", ["full", "tiny", "parity"])
+def test_front_end_kernel_matches_plain(shape, lanes):
+    """The front end on drive scans bitwise its plain version on the card,
+    two calls bitwise equal, and each lane of a batch bitwise its lone call."""
+    _need_card()
+    from lidar_odometry_demo_tpu_torch.kernels.prepare import prepare, prepare_plain
+
+    cfg = _FRONT_END_CONFIGS[shape]
+    cases = _front_end_cases(shape, max(lanes, 1))
+    args = (*_front_end_args(cases, lanes > 0, "cuda"), cfg, True)
+    got = prepare(*args)
+    _assert_front_end_equal(got, prepare_plain(*args))
+    _assert_front_end_equal(prepare(*args), got)
+    assert int(got.num_planar.sum()) > (300 if shape == "tiny" else 5000) * max(lanes, 1)
+    for b in range(lanes if lanes > 1 else 0):
+        one = prepare(*_front_end_args(cases[b:b + 1], False, "cuda"), cfg, True)
+        _assert_front_end_equal(_lane(got, b), one)
+
+
+@pytest.mark.parametrize("name", ["still", "moving", "equal_time", "empty"])
+@pytest.mark.parametrize("shape", ["full", "tiny"])
+def test_front_end_kernel_edges(shape, name):
+    """The edge scans (tests/_prepare_cases.py: two points in a cell, rings
+    outside [0, R), an all-equal time, an empty scan, points at exactly 4 m
+    and 80 m, cells at the flattened image's ends) bitwise the plain
+    version on the card."""
+    _need_card()
+    from _prepare_cases import edge_case
+
+    from lidar_odometry_demo_tpu_torch.kernels.prepare import prepare, prepare_plain
+
+    cfg = _FRONT_END_CONFIGS[shape]
+    edge, prev, cur = edge_case(cfg, name)
+    args = (*_front_end_args([(edge.scan, prev, cur)], False, "cuda"), cfg, True)
+    got = prepare(*args)
+    _assert_front_end_equal(got, prepare_plain(*args))
+    if name == "still":
+        assert bool(got.planar.valid[edge.at_min]) and bool(got.planar.valid[edge.at_max])
+
+
+def test_front_end_wrapper_checks_its_inputs():
+    _need_card()
+    from lidar_odometry_demo_tpu_torch.kernels.prepare import prepare
+
+    cfg = TINY
+    prev, cur, raw = _front_end_args(_front_end_cases("tiny", 1), False, "cuda")
+    with pytest.raises(ValueError, match="int32"):
+        prepare(prev, cur, raw._replace(ring=raw.ring.long()), cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        prepare(prev, cur, raw._replace(xyz=raw.xyz.T.contiguous().T), cfg)
+    with pytest.raises(ValueError, match="shape"):
+        prepare(Pose(prev.t, prev.q[:3]), cur, raw, cfg)
+    with pytest.raises(ValueError, match="shape"):  # the poses' lanes are the scan's
+        prepare(Pose(prev.t[None], prev.q[None]), cur, raw, cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        prepare(Pose(prev.t.cpu(), prev.q), cur, raw, cfg)
+    with pytest.raises(ValueError, match="curvature_window"):
+        prepare(prev, cur, raw, cfg.replace(curvature_window=5000))
+
+
+@pytest.mark.parametrize("lanes", [0, 3], ids=["one", "B3"])
+def test_front_end_counts_one_call_per_step(lanes):
+    """`prepare.launches` counts one call a step on the card, eager scans
+    and captured replays alike (pipeline/graphs.py COUNTED)."""
+    _need_card()
+    from lidar_odometry_demo_tpu_torch.kernels.prepare import prepare
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
+    from lidar_odometry_demo_tpu_torch.parallel import batched
+
+    d = simulate_sequence(num_scans=6, width=TINY.scan_width, seed=3, speed=2.0,
+                          yaw_rate=0.05, ramp_time=0.0)
+    scans = [scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
+                             TINY.max_raw_points, "cuda") for s in d.scans]
+    _counts()
+    before = prepare.launches
+    if lanes:
+        scans_b = LidarScan(*(torch.stack([torch.stack([getattr(s, f)] * lanes) for s in scans])
+                              for f in LidarScan._fields))
+        batched.make_batched_sequence_runner(TINY)(
+            batched.init_batched_state(TINY, lanes, "cuda"), scans_b)
+    else:
+        odometry.make_sequence_runner(TINY)(odometry.init_state(TINY, "cuda"), scans)
+    _counts()
+    assert prepare.launches - before == len(scans)
