@@ -1,4 +1,6 @@
-"""Traffic generation: simulated VLP16 drives made on the card from a seed.
+"""Traffic generation: simulated drives of a spinning multi-beam LiDAR
+(the VLP16 unless the configuration names its sensor), made on the card
+from a seed.
 
 A copy of the port's NumPy simulator (lidar_odometry_demo_tpu_torch/io/
 simulator.py: `World.urban`, `simulate_sequence`, `encode_vlp16_packets`)
@@ -9,13 +11,18 @@ in bulk in the order the NumPy version draws them, so a drive here is the
 NumPy drive of the same seed (test_odobench_traffic.py holds the two
 together).
 
+The sensor is its beam table: R elevations, lowest ring first, each cast
+at W azimuths a scan (`elevation_deg`; None is the VLP16's 16 beams from
+-15 to +15 degrees, the NumPy version's only sensor). At R = 16 with the
+VLP16's table every draw and every output bit is the NumPy version's.
+
 A drive comes out as padded scans with a leading scan axis, the layout of
 the port's `LidarScan`: xyz (S, N, 3) float32, intensity, ring (int32),
 time and valid (S, N), points in the NumPy version's order (ring-major,
-then column, hits only), N = the config's `max_raw_points`. A drive made
-with its range images can be encoded as VLP16 packets (`encode_packets`, a
-vectorised `encode_vlp16_packets`), the input of a live mix (none is a cell
-yet).
+then column, hits only), N = the config's `max_raw_points`. A VLP16 drive
+made with its range images can be encoded as VLP16 packets
+(`encode_packets`, a vectorised `encode_vlp16_packets`), the input of a
+live mix (none is a cell yet).
 """
 
 from __future__ import annotations
@@ -27,6 +34,11 @@ import torch
 
 K_SEQ_S = 55.296e-6   # VLP16 firing-sequence period
 PACKET_BYTES = 1206
+
+
+def vlp16_elevation_deg() -> np.ndarray:
+    """The VLP16's 16 beam elevations, lowest first (degrees)."""
+    return np.linspace(-15.0, 15.0, 16)
 
 
 class Motion(NamedTuple):
@@ -45,7 +57,7 @@ class Motion(NamedTuple):
 
 
 class Drive(NamedTuple):
-    """Padded scans (S, N, ...) on the device, and the range images (S, 16,
+    """Padded scans (S, N, ...) on the device, and the range images (S, R,
     W) float64 (inf where a beam has no return) when asked for."""
 
     xyz: torch.Tensor
@@ -114,28 +126,32 @@ def _ray_ranges(origins: torch.Tensor, dirs: torch.Tensor, boxes: torch.Tensor,
 
 def simulate_drive(seed: int, num_scans: int, width: int, capacity: int, motion: Motion,
                    device, first_scan: int = 0, with_range_image: bool = False,
-                   chunk: int = 25) -> Drive:
+                   chunk: int = 25, elevation_deg=None) -> Drive:
     """Scans first_scan .. first_scan + num_scans - 1 of the NumPy
     `simulate_sequence(num_scans, width, seed, speed, yaw_rate, ...)`
-    drive, padded to `capacity` points, on `device`."""
+    drive, padded to `capacity` points, on `device`; the beams of
+    `elevation_deg` (R degrees, lowest first; None: the VLP16's)."""
     m = motion
     dev = torch.device(device)
     f64 = dict(dtype=torch.float64, device=dev)
+    table = (vlp16_elevation_deg() if elevation_deg is None
+             else np.asarray(elevation_deg, np.float64))
+    R = table.shape[0]
     boxes = torch.as_tensor(urban_boxes(seed, m.num_boxes, m.extent), **f64)
     rng = np.random.default_rng(seed + 100)
-    noise_all = rng.normal(0, m.range_noise, ((first_scan + num_scans) * 16, width))
-    noise_all = noise_all[first_scan * 16:].reshape(num_scans, 16, width)
-    elev = torch.as_tensor(np.deg2rad(np.linspace(-15.0, 15.0, 16)), **f64)
+    noise_all = rng.normal(0, m.range_noise, ((first_scan + num_scans) * R, width))
+    noise_all = noise_all[first_scan * R:].reshape(num_scans, R, width)
+    elev = torch.as_tensor(np.deg2rad(table), **f64)
     az = (torch.arange(width, **f64) + 0.5) * (2 * np.pi / width)
     dir_ring = torch.stack([torch.cos(elev)[:, None] * torch.cos(az)[None, :],
                             -torch.cos(elev)[:, None] * torch.sin(az)[None, :],
                             torch.sin(elev)[:, None] * torch.ones_like(az)[None, :]], -1)
     frac = torch.arange(width, **f64) / width
-    n_pts = 16 * width
+    n_pts = R * width
     if n_pts > capacity:
         raise ValueError(f"{n_pts} beams per scan do not fit {capacity} points")
     out = {k: [] for k in ("xyz", "time", "ring", "valid", "range_image")}
-    ring_of = torch.arange(16, dtype=torch.int32, device=dev)[:, None].expand(16, width)
+    ring_of = torch.arange(R, dtype=torch.int32, device=dev)[:, None].expand(R, width)
     for c0 in range(0, num_scans, chunk):
         s = torch.arange(first_scan + c0, first_scan + min(c0 + chunk, num_scans), **f64)
         t0 = s * m.scan_period                                          # (S,)
@@ -149,17 +165,17 @@ def simulate_drive(seed: int, num_scans: int, width: int, capacity: int, motion:
         _, px, py = _yaw_xy(col_time, m)
         origins = torch.stack([px, py, torch.full_like(px, m.sensor_height)], -1)  # (S, W, 3)
         cy, sy = torch.cos(yaw_c)[:, None], torch.sin(yaw_c)[:, None]           # (S, 1, W)
-        d = dir_ring[None]                                                       # (1, 16, W, 3)
+        d = dir_ring[None]                                                       # (1, R, W, 3)
         d_world = torch.stack([cy * d[..., 0] - sy * d[..., 1],
                                sy * d[..., 0] + cy * d[..., 1],
-                               d[..., 2].expand(cy.shape[0], 16, width)], -1)
+                               d[..., 2].expand(cy.shape[0], R, width)], -1)
         ranges = _ray_ranges(origins[:, None].expand_as(d_world), d_world, boxes,
-                             m.max_range)                                        # (S, 16, W)
+                             m.max_range)                                        # (S, R, W)
         hit = torch.isfinite(ranges)
         noise = torch.as_tensor(noise_all[c0:c0 + s.shape[0]], **f64)
         ranges = ranges + noise
         image = torch.where(hit, ranges, float("inf"))
-        pts = (dir_ring[None] * ranges[..., None]).to(torch.float32)            # (S, 16, W, 3)
+        pts = (dir_ring[None] * ranges[..., None]).to(torch.float32)            # (S, R, W, 3)
         rel_t = (col_time - t0[:, None]).to(torch.float32)                       # (S, W)
         S = s.shape[0]
         flat_hit = hit.reshape(S, n_pts)
@@ -176,8 +192,8 @@ def simulate_drive(seed: int, num_scans: int, width: int, capacity: int, motion:
             return torch.cat([x, x.new_full((S, pad, *x.shape[2:]), fill)], 1)
 
         out["xyz"].append(compact(pts))
-        out["time"].append(compact(rel_t[:, None, :].expand(S, 16, width)))
-        out["ring"].append(compact(ring_of[None].expand(S, 16, width)))
+        out["time"].append(compact(rel_t[:, None, :].expand(S, R, width)))
+        out["ring"].append(compact(ring_of[None].expand(S, R, width)))
         out["valid"].append(torch.cat([keep, keep.new_zeros((S, pad))], 1))
         if with_range_image:
             out["range_image"].append(image)

@@ -6,7 +6,9 @@ A cell is found by name: `BENCHMARK.json` gives its configuration and
 traffic, `configs/<config>.json` and `traffic/<traffic>.json` hold them,
 `limits/<cell>.json` the limits of its check, `metrics/<metric>.py` one
 reader per per-layer metric and `roofline/<kernel>.py` one kernel's bytes
-and operations. Nothing here names a cell.
+and operations. A configuration may name its sensor, `"sensor": {"name",
+"rings", "elevation_deg"}` (R elevations, lowest ring first); one that
+names none is the VLP16. Nothing here names a cell.
 
 The program under test is the port, `lidar_odometry_demo_tpu_torch`; the
 harness drives it through its public entry points only (`LidarOdometry`,
@@ -56,10 +58,17 @@ def load_module(path: Path):
     return mod
 
 
+def kernel_functions(mod) -> tuple:
+    """The CUDA functions of a `roofline/<kernel>.py`: its `KERNEL`, or its
+    `KERNELS` where one call launches each of several once."""
+    return tuple(getattr(mod, "KERNELS", None) or (mod.KERNEL,))
+
+
 def trace_kernels() -> tuple:
-    """The kernels a trace summary counts: K1 and K2, and every kernel of
-    `roofline/<kernel>.py` by its CUDA function name."""
-    names = {load_module(p).KERNEL for p in sorted((HERE / "roofline").glob("*.py"))}
+    """The kernels a trace summary counts: K1 and K2, and every CUDA
+    function of every `roofline/<kernel>.py`."""
+    names = {f for p in sorted((HERE / "roofline").glob("*.py"))
+             for f in kernel_functions(load_module(p))}
     return tuple(sorted(names | set(CHECKED_KERNELS)))
 
 
@@ -81,7 +90,28 @@ def load_cell(name: str, bench_path: Path | None = None, overrides: dict | None 
     e2e = [m for m in bench["end_to_end"] if name in m.get("workloads", [name])]
     per_layer = [m for m in bench["per_layer"] if name in m.get("workloads", [name])]
     return Cell(name=name, chips=work["chips"], config=config, traffic=traffic,
-                limits=limits, end_to_end=e2e, per_layer=per_layer)
+                limits=limits, end_to_end=e2e, per_layer=per_layer,
+                elevation_deg=elevation_table(config, work["config"]))
+
+
+def elevation_table(config: dict, name: str) -> list:
+    """The configuration's beam elevations (degrees, lowest ring first): its
+    `sensor`'s table, or the VLP16's; refused unless it has `num_rings`
+    entries, rises, and its R x W beams fit `max_raw_points`."""
+    odo = config["odometry"]
+    sensor = config.get("sensor")
+    table = (list(sensor["elevation_deg"]) if sensor is not None
+             else gen.vlp16_elevation_deg().tolist())
+    rings = sensor["rings"] if sensor is not None else len(table)
+    if not len(table) == rings == odo["num_rings"]:
+        raise ValueError(f"configuration {name!r}: {len(table)} elevations, {rings} rings, "
+                         f"num_rings {odo['num_rings']}")
+    if any(b <= a for a, b in zip(table, table[1:])):
+        raise ValueError(f"configuration {name!r}: elevations not lowest ring first")
+    if rings * odo["scan_width"] > odo["max_raw_points"]:
+        raise ValueError(f"configuration {name!r}: {rings} x {odo['scan_width']} beams do "
+                         f"not fit max_raw_points {odo['max_raw_points']}")
+    return table
 
 
 def port_config(cell: Cell):
@@ -109,7 +139,8 @@ def drives_of(cell: Cell, seed: int, device, with_range_image: bool = False) -> 
     return [gen.simulate_drive(gen.drive_seed(seed, d), tr["scans_per_drive"],
                                cfg["scan_width"], cfg["max_raw_points"],
                                motion(tr, d if tr["loop"] == "fleet" else None), device,
-                               with_range_image=with_range_image)
+                               with_range_image=with_range_image,
+                               elevation_deg=cell.elevation_deg)
             for d in range(n)]
 
 

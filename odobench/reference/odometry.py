@@ -6,7 +6,7 @@ It imports nothing of the port or of the JAX package, and takes nothing
 the port made: the benchmark hands it the same generated scans.
 
 Per scan: time-normalise, deskew at constant velocity, LOAM planar
-classification on the 16 x W range image, range filter, two first-point
+classification on the R x W range image, range filter, two first-point
 voxel downsamples (0.1 m update, 0.3 m match; the `budget` smallest keys
 kept), point-to-plane ICP (Huber IRLS, four Gauss-Newton steps per
 correspondence round, translation prior, Levenberg damping; rounds to

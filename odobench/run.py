@@ -58,19 +58,27 @@ class Context:
         return self._load(HERE / "roofline" / f"{name}.py")
 
     def roofline_share(self, name: str):
+        """The bound of `roofline/<name>.py` over the mean time of one call,
+        in percent; a call launches each of its CUDA functions once, so
+        their mean times per launch are summed."""
+        import harness
         import peaks
 
         mod = self.roofline(name)
         if not self.trace or self.shape is None:
             return None
-        launches, seconds = self.trace[0].kernels.get(mod.KERNEL, (0, 0.0))
-        if launches == 0 or seconds <= 0:
-            return None
-        return 100.0 * peaks.bound_s(*mod.bytes_ops(**self.shape)) / (seconds / launches)
+        per_call = 0.0
+        for fn in harness.kernel_functions(mod):
+            launches, seconds = self.trace[0].kernels.get(fn, (0, 0.0))
+            if launches == 0 or seconds <= 0:
+                return None
+            per_call += seconds / launches
+        return 100.0 * peaks.bound_s(*mod.bytes_ops(**self.shape)) / per_call
 
 
 def kernel_shape(raw: dict, cell) -> dict | None:
-    """The traced kernels' shapes: the configuration's sizes, and the
+    """The traced kernels' shapes: the configuration's sizes (the raw
+    scan's N points, R rings and W columns among them), and the
     data-dependent counts (present voxel slices, their candidates, valid
     matches) that the reference found on the same scans of every lane,
     per scan averaged over the traced scans and summed over the lanes."""
@@ -86,7 +94,8 @@ def kernel_shape(raw: dict, cell) -> dict | None:
     n = len(got)
     K = odo["keyframe_max_points_cnt"]
     return dict(Q=odo["max_match_points"], B=B, C=odo["map_capacity"],
-                RW=-(-(3 * K + 1) // 8) * 8,
+                RW=-(-(3 * K + 1) // 8) * 8, N=odo["max_raw_points"], R=odo["num_rings"],
+                W=odo["scan_width"],
                 present=B * sum(g.present_slices for g in got) / n,
                 candidates=B * sum(g.candidates for g in got) / n,
                 valid=B * sum(g.matches for g in got) / n)

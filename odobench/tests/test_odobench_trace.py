@@ -5,7 +5,9 @@ import pytest
 
 import _paths  # noqa: F401
 import devtrace
+import harness
 import peaks
+import run
 from harness import load_module, HERE
 
 
@@ -90,3 +92,64 @@ def test_k1_counts():
     assert b8 == 8 * n_bytes
     # bound by bytes at these shapes
     assert n_bytes / peaks.HBM_BYTES_PER_S > n_ops / peaks.FP32_FLOPS_PER_S
+
+
+VLP16 = dict(N=32768, R=16, W=1800)
+
+
+def test_prepare_bound_is_the_kernel_tables():
+    # the front end's bound at vlp16 sizes (PERF.md): 0.00049 ms at B = 1, 0.0039 at B = 8,
+    # by bytes: 21 a raw point in, 33 an image cell out
+    assert _bound_ms("prepare", B=1, **VLP16) == pytest.approx(0.00049, rel=0.01)
+    assert _bound_ms("prepare", B=8, **VLP16) == pytest.approx(0.0039, rel=0.01)
+    mod = load_module(HERE / "roofline" / "prepare.py")
+    n_bytes, n_ops = mod.bytes_ops(B=1, **VLP16)
+    assert n_bytes == 21 * 32768 + 33 * 16 * 1800
+    assert n_bytes / peaks.HBM_BYTES_PER_S > n_ops / peaks.FP32_FLOPS_PER_S
+
+
+def _trace_of(kernels: dict):
+    return devtrace.TraceSummary(window_s=1e-3, busy_s=5e-4, device_ops=100, kernels=kernels,
+                                 top_ops=[], idle_gaps=[])
+
+
+def test_a_kernels_module_share_sums_its_functions_per_call():
+    mod = load_module(HERE / "roofline" / "prepare.py")
+    assert set(mod.KERNELS) <= set(harness.trace_kernels())
+    assert {"match_kernel", "gn_step_kernel", "neighborhood_kernel"} <= set(harness.trace_kernels())
+    shape = dict(B=8, **VLP16)
+    # 20 calls; the four functions' mean times per launch 6, 3, 2.5 and 4 us
+    kernels = {"lane_kernel": (20, 120e-6), "point_kernel": (20, 60e-6),
+               "image_kernel": (20, 50e-6), "planar_kernel": (20, 80e-6)}
+    ctx = run.Context({"trace": [_trace_of(kernels)]}, None, shape, load_module)
+    bound = peaks.bound_s(*mod.bytes_ops(**shape))
+    assert ctx.roofline_share("prepare") == pytest.approx(100 * bound / 15.5e-6)
+    # a record lost on one function moves only that function's mean
+    kernels["image_kernel"] = (19, 47.5e-6)
+    ctx = run.Context({"trace": [_trace_of(kernels)]}, None, shape, load_module)
+    assert ctx.roofline_share("prepare") == pytest.approx(100 * bound / 15.5e-6)
+    # a function the span never ran leaves the metric out, as does a missing trace
+    del kernels["point_kernel"]
+    ctx = run.Context({"trace": [_trace_of(kernels)]}, None, shape, load_module)
+    assert ctx.roofline_share("prepare") is None
+    assert run.Context({}, None, shape, load_module).roofline_share("prepare") is None
+
+
+def test_a_kernel_module_share_is_its_mean_launch():
+    shape = dict(Q=8192, B=1, C=131072, RW=64)
+    mod = load_module(HERE / "roofline" / "k2.py")
+    ctx = run.Context({"trace": [_trace_of({"gn_step_kernel": (80, 400e-6)})]}, None, shape,
+                      load_module)
+    assert ctx.roofline_share("k2") == pytest.approx(
+        100 * peaks.bound_s(*mod.bytes_ops(**shape)) / 5e-6)
+
+
+def test_kernel_shape_gives_the_raw_scan_and_the_counts():
+    from types import SimpleNamespace
+    cell = harness.load_cell("vlp16.fleet8")
+    stats = SimpleNamespace(present_slices=100, candidates=1000, matches=50)
+    raw = dict(traced=dict(scans=2, rounds=8, lanes=8), traced_scans=[(0, 0), (1, 1)],
+               ref_stats=[dict(stats=[stats, None]), dict(stats=[None, stats])])
+    shape = run.kernel_shape(raw, cell)
+    assert {k: shape[k] for k in ("B", "N", "R", "W")} == dict(B=8, **VLP16)
+    assert (shape["present"], shape["candidates"], shape["valid"]) == (800, 8000, 400)
