@@ -38,12 +38,17 @@ Phases, each of which raises (non-zero exit) on failure:
    map_update, the condition once per captured scan and once per round), if
    aligned ATE against ground truth exceeds 0.03 m or is not within 1e-4 m
    of 0.00936 m (the JAX package's and the port's earlier runs), or if any
-   scan diverged, or unless the step's front end ran once a scan. Then the
-   front end (kernels/prepare.cu) against its plain version, bitwise (every
-   output; the normals on planar cells), on the drive's scans 2-39 deskewed
-   between phase 3's poses, at B = 1 and at B = 8 (each lane its B = 1
-   call), two calls equal and four device operations a call; CUDA event
-   times of both at B = 1 and 8 beside the bound;
+   scan diverged, or unless the step's front end and map update each ran
+   once a scan. Then the front end (kernels/prepare.cu) against its plain
+   version, bitwise (every output; the normals on planar cells), on the
+   drive's scans 2-39 deskewed between phase 3's poses, at B = 1 and at
+   B = 8 (each lane its B = 1 call), two calls equal and four device
+   operations a call; CUDA event times of both at B = 1 and 8 beside the
+   bound; then the map update (kernels/map_update.cu) against its plain
+   version, bitwise (the whole table, keys, count, origin, size, dropped),
+   on the eager step's calls of scans 32-39 at B = 1 (new and in place)
+   and B = 8 (each lane its B = 1 call), its device operations a call, CUDA
+   event times of both beside the bound and the table passes' TB/s;
 4. K3's three modes against their plain versions on the card, bitwise: the
    neighbourhood lookup (base and n_present everywhere, every present
    candidate row) and map_update's group lookup (pos_c, found), recorded
@@ -185,6 +190,7 @@ been reaped when it exits.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -759,12 +765,13 @@ def counters() -> dict:
     from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
     from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate
     from lidar_odometry_demo_tpu_torch.kernels.loop import loop_condition
+    from lidar_odometry_demo_tpu_torch.kernels.map_update import map_update
     from lidar_odometry_demo_tpu_torch.kernels.prepare import prepare
     from lidar_odometry_demo_tpu_torch.kernels.search import search_sorted
 
     return {"match_rows": match_rows, "jtwj_accumulate": jtwj_accumulate,
             "search_sorted": search_sorted, "loop_condition": loop_condition,
-            "prepare": prepare}
+            "prepare": prepare, "map_update": map_update}
 
 
 def zero_counts(counted: dict | None = None) -> None:
@@ -875,9 +882,10 @@ def drive_path(name: str, cfg, bench: dict, device, *, ate_gt=None, ate_ref_max=
     if launches["jtwj_accumulate"] != cfg.icp_inner_iterations * rounds:
         raise AssertionError(
             f"{name}: K2 launches {launches['jtwj_accumulate']} != 4 x ICP rounds {rounds}")
-    if launches["prepare"] != num_scans:
-        raise AssertionError(f"{name}: front-end calls {launches['prepare']} != scans "
-                             f"{num_scans} (one a step, eager or captured)")
+    for kernel in ("prepare", "map_update"):
+        if launches[kernel] != num_scans:
+            raise AssertionError(f"{name}: {kernel} calls {launches[kernel]} != scans "
+                                 f"{num_scans} (one a step, eager or captured)")
     # a fresh LidarOdometry: the warm-up scans eager, the rest captured
     want_loop = loop_schedule(iters, WARM_UP_SCANS)
     if launches["loop_condition"] != want_loop:
@@ -1029,6 +1037,150 @@ def check_prepare(bench: dict, diags: list, device) -> dict:
                 max_abs_err=0.0, ms=b1["ms"], plain_ms=b1["plain_ms"], bound_ms=b1["bound"][0],
                 bound_by=b1["bound"][1], library_ms=None, ms_b8=b8["ms"],
                 plain_ms_b8=b8["plain_ms"], bound_ms_b8=b8["bound"][0], device_ops_per_call=4)
+
+
+def map_update_calls(bench: dict, device, first: int) -> list:
+    """The map update's arguments (map, update points, keywords), cloned, of
+    the bench drive's scans `first`.. through the eager step on the card."""
+    from lidar_odometry_demo_tpu_torch.config import OdometryConfig
+    from lidar_odometry_demo_tpu_torch.pipeline import odometry
+
+    cfg = OdometryConfig()
+    step, state = odometry.make_process_scan(cfg), odometry.init_state(cfg, device)
+    calls, index, original = [], itertools.count(), odometry.update_map
+
+    def clone(x):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(_clone(v) for v in x))
+        return _clone(x)
+
+    def record(m, new, **kwargs):
+        if next(index) >= first:
+            calls.append((clone(m), clone(new), {k: clone(v) for k, v in kwargs.items()}))
+        return original(m, new, **kwargs)
+
+    odometry.update_map = record
+    try:
+        for scan in bench["scans"]:
+            state, _ = step(state, scan)
+    finally:
+        odometry.update_map = original
+    return calls
+
+
+def _update_diffs(got, want) -> list:
+    """The outputs of two map-update calls that differ bitwise (the whole
+    table, keys, count, origin, size, dropped)."""
+    pairs = {f: (getattr(got.keyframe, f), getattr(want.keyframe, f))
+             for f in ("tab", "keys", "count", "origin")}
+    pairs.update(size=(got.size, want.size), dropped=(got.dropped, want.dropped))
+    return [k for k, (a, b) in pairs.items() if not _bitwise(a, b)]
+
+
+def check_map_update(bench: dict, device) -> dict:
+    """Phase 3's map update (kernels/map_update.cu: ScanStep.update's world
+    transform, evict + rebase + insert and diagnostics) against its plain
+    version on the card, bitwise (the whole table, keys, count, origin, size,
+    dropped), on the eager step's calls of the bench drive's scans 32-39 (a
+    saturated map) at B = 1, into a new table and in place, and at B = 8 (the
+    eight calls as lanes, each lane bitwise its B = 1 call); one count a call;
+    device operations a call under torch.profiler. CUDA event times of the
+    kernels (in place, as the captured step runs them) and of the plain
+    version at B = 1 and 8, beside the bound (bytes: each lane's table read
+    and written by the scratch copy and by the assembly, the points), and the
+    table passes' (the prologue with its copy, the assembly) effective TB/s
+    over those bytes in the profiler's times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidar_odometry_demo_tpu_torch.kernels.map_update import map_update, map_update_plain
+    from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
+
+    calls = map_update_calls(bench, device, first=32)
+    before = map_update.launches
+    ones = []
+    for s, (m, new, kw) in enumerate(calls):
+        want = map_update_plain(m, new, **kw)
+        got = map_update(m, new, **kw)
+        tab = m.tab.clone()
+        bad = _update_diffs(got, want)
+        bad += [f"in place: {k}" for k in _update_diffs(
+            map_update(m._replace(tab=tab), new, **dict(kw, tab_out=tab)), want)]
+        if bad:
+            raise AssertionError(f"map update, bench scan {32 + s}: {bad} differ from the plain "
+                                 f"version")
+        ones.append(got)
+
+    def stack(xs):
+        if isinstance(xs[0], tuple):
+            return type(xs[0])(*(stack([x[i] for x in xs]) for i in range(len(xs[0]))))
+        return torch.stack(xs) if isinstance(xs[0], torch.Tensor) else xs[0]
+
+    m8, new8 = stack([c[0] for c in calls]), stack([c[1] for c in calls])
+    kw8 = {k: stack([c[2][k] for c in calls]) for k in calls[0][2]}
+    got8 = map_update(m8, new8, **kw8)
+    bad = _update_diffs(got8, map_update_plain(m8, new8, **kw8))
+    for b, one in enumerate(ones):
+        bad += [f"lane {b}: {k}" for k in _update_diffs(_lane(got8, b), one)]
+    if bad:
+        raise AssertionError(f"map update at B = 8: {bad} differ")
+    n_calls = map_update.launches - before
+    occupancy = [int(o.size) for o in ones]
+
+    def in_place(m, new, kw):
+        """A call as the captured step makes it: into the map's own table
+        (a copy of it, so the recorded calls stay as they were)."""
+        mc = m._replace(tab=m.tab.clone())
+        return lambda: map_update(mc, new, **dict(kw, tab_out=mc.tab))
+
+    m1, new1, kw1 = calls[-1]
+    run1, run8 = in_place(m1, new1, kw1), in_place(m8, new8, kw8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            run1()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    ops = sum(e.count for e in events) / 10
+    names = sorted({e.key for e in events})
+    with profile(activities=[ProfilerActivity.CUDA]) as prof8:
+        for _ in range(10):
+            run8()
+        torch.cuda.synchronize()
+    table_us = {B: sum(e.self_device_time_total for e in p.key_averages()
+                       if e.device_type.name == "CUDA"
+                       and ("prologue_kernel" in e.key or "assemble_kernel" in e.key)) / 10
+                for B, p in ((1, prof), (8, prof8))}
+    C, K, N = m1.capacity, m1.max_points, new1.valid.shape[-1]
+    _, _, W = vm._lanes(K)
+    out = {}
+    for B, run, args in ((1, run1, (m1, new1, kw1)), (8, run8, (m8, new8, kw8))):
+        table_bytes = B * 4 * C * W * 4   # copy and assembly: each reads and writes the table
+        out[B] = dict(ms=time_ms(run, 100),
+                      plain_ms=time_ms(lambda a=args: map_update_plain(a[0], a[1], **a[2]), 10),
+                      # + the points and normals in and their world copies out and
+                      # back, keys and counts in and out
+                      bound=bound_ms(table_bytes + B * (N * 73 + C * 16), B * (N * 120 + C * 20)),
+                      table_ms=table_us[B] / 1e3,
+                      table_tb_per_s=table_bytes / (table_us[B] * 1e-6) / 1e12)
+    b1, b8 = out[1], out[8]
+    log(f"kernel map_update (the step's map update): bitwise its plain version on "
+        f"{len(calls)} bench calls (occupancy {min(occupancy)}-{max(occupancy)} of {C}) at B = 1, "
+        f"new and in place, and at B = 8 (every lane its B = 1 call), {n_calls} calls; "
+        f"{ops:g} device operations a call ({', '.join(names)}); {b1['ms']:.4f} / "
+        f"{b8['ms']:.4f} ms at B = 1 / 8 in place, plain {b1['plain_ms']:.4f} / "
+        f"{b8['plain_ms']:.4f} ms, bound {b1['bound'][0]:.5f} / {b8['bound'][0]:.5f} ms "
+        f"({b1['bound'][1]}); table passes {b1['table_ms']:.4f} / {b8['table_ms']:.4f} ms, "
+        f"{b1['table_tb_per_s']:.2f} / {b8['table_tb_per_s']:.2f} TB/s")
+    if n_calls != 2 * len(calls) + 1:
+        raise AssertionError(f"map update: {n_calls} counted for {2 * len(calls) + 1} calls")
+    return dict(name="map_update", route="cuda",
+                source="lidar_odometry_demo_tpu_torch/kernels/map_update.cu", replaces=None,
+                max_abs_err=0.0, ms=b1["ms"], plain_ms=b1["plain_ms"], bound_ms=b1["bound"][0],
+                bound_by=b1["bound"][1], library_ms=None, ms_b8=b8["ms"],
+                plain_ms_b8=b8["plain_ms"], bound_ms_b8=b8["bound"][0],
+                device_ops_per_call=ops, table_ms=b1["table_ms"], table_ms_b8=b8["table_ms"],
+                table_tb_per_s=b1["table_tb_per_s"], table_tb_per_s_b8=b8["table_tb_per_s"])
 
 
 # --------------------------------------------------------------------------
@@ -1420,7 +1572,7 @@ def run_fleet(bench: dict, main_diags: list, main_odo, single_ms: float, device)
     # the runner's step is captured already: only the fresh state's first step is eager
     want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
             "search_sorted": icp_steps + S, "loop_condition": loop_schedule(iters, 1),
-            "prepare": S}
+            "prepare": S, "map_update": S}
     if launches != want:
         raise AssertionError(f"fleet path: launches {launches} != the schedule {want}")
     return dict(launches=launches, state=state, scans=scans_b, diags=diags, ms_per_step=ms_step,
@@ -1947,7 +2099,8 @@ def run_live_path(bench: dict, main_diags: list, main_ms: float, device) -> dict
     rounds = int(iters.sum())
     want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
             "search_sorted": int(np.sum(iters > 0)) + n,
-            "loop_condition": loop_schedule(iters, WARM_UP_SCANS), "prepare": n}
+            "loop_condition": loop_schedule(iters, WARM_UP_SCANS), "prepare": n,
+            "map_update": n}
     log(f"live: {d_free_t:.3g} m / {d_free_q:.3g} from the socket-free run over the same "
         f"packets, {d_main:.5f} m from the main path (phase 3), aligned ATE {ate:.5f} m vs "
         f"ground truth, diverged {diverged}, mean ICP rounds {rounds / max(n - 1, 1):.2f}, "
@@ -2716,7 +2869,8 @@ def _split_schedule(label: str, rs: list, n_scans: int) -> None:
         rounds = by_kind.get("matches,cost", 0)
         want = {"match_rows": rounds, "jtwj_accumulate": rounds,
                 "gn_sum_step": (inner - 1) * rounds, "gn_epilogue": rounds,
-                "search_sorted": 2 * n_scans, "loop_condition": 0, "prepare": n_scans}
+                "search_sorted": 2 * n_scans, "loop_condition": 0, "prepare": n_scans,
+                "map_update": n_scans}
         if r["launches"] != want or by_kind.get("H,b", 0) != inner * rounds:
             raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the split "
                                  f"schedule {want}, or {by_kind.get('H,b', 0)} gathers of H and "
@@ -2894,7 +3048,8 @@ def check_dp_ranks(label: str, rs: list, fleet: dict) -> dict:
         want = {"match_rows": rounds, "jtwj_accumulate": inner * rounds, "gn_sum_step": 0,
                 "gn_epilogue": 0,
                 "search_sorted": int(np.sum(r["iters"].max(axis=1) > 0)) + n_scans,
-                "loop_condition": loop_schedule(r["iters"], 1), "prepare": n_scans}
+                "loop_condition": loop_schedule(r["iters"], 1), "prepare": n_scans,
+                "map_update": n_scans}
         if r["launches"] != want:
             raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the batched "
                                  f"schedule {want}")
@@ -3187,6 +3342,7 @@ def main() -> int:
     bench = bench_drive(device)
     odo, launches, main_diags, single_ms = run_main_path(bench, device)
     kernels.append(check_prepare(bench, main_diags, device))
+    kernels.append(check_map_update(bench, device))
     kernels.append(check_search(device, path_lookups(odo, bench["scans"][-1])))
     parity_odo, parity, parity_diags = run_reference_parity(bench, device)
     check_lookups("reference_parity path's map", path_lookups(parity_odo, bench["scans"][-1]))

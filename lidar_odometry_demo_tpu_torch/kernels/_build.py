@@ -21,7 +21,7 @@ from pathlib import Path
 import torch
 
 SOURCES = {"match_rows": "match_rows.cu", "jtwj": "jtwj.cu", "search": "search.cu",
-           "loop": "loop.cu", "prepare": "prepare.cu"}
+           "loop": "loop.cu", "prepare": "prepare.cu", "map_update": "map_update.cu"}
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

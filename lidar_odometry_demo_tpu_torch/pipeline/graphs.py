@@ -81,6 +81,7 @@ from lidar_odometry_demo_tpu_torch.device import HostFlags
 from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import gn_epilogue, gn_sum_step, jtwj_accumulate
 from lidar_odometry_demo_tpu_torch.kernels.loop import LoopGraph, loop_condition
+from lidar_odometry_demo_tpu_torch.kernels.map_update import map_update
 from lidar_odometry_demo_tpu_torch.kernels.prepare import prepare
 from lidar_odometry_demo_tpu_torch.kernels.search import search_sorted
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
@@ -93,7 +94,8 @@ from lidar_odometry_demo_tpu_torch.utils import profiling
 # eager scans of each lane count before the capture
 WARM_UP_SCANS = 2
 # the launch-counted kernel wrappers of the step
-COUNTED = (match_rows, jtwj_accumulate, gn_sum_step, gn_epilogue, search_sorted, prepare)
+COUNTED = (match_rows, jtwj_accumulate, gn_sum_step, gn_epilogue, search_sorted, prepare,
+           map_update)
 # the loop graphs launched since the last settle_launches, each with its
 # body's captured launches (held past their step's life: a few bytes each)
 _UNSETTLED: dict[int, tuple] = {}

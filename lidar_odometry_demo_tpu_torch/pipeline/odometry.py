@@ -41,6 +41,7 @@ import torch
 from lidar_odometry_demo_tpu_torch.config import OdometryConfig
 from lidar_odometry_demo_tpu_torch.device import HostFlags, resolve_device
 from lidar_odometry_demo_tpu_torch.kernels import prepare as front_end
+from lidar_odometry_demo_tpu_torch.kernels.map_update import map_update as update_map
 from lidar_odometry_demo_tpu_torch.ops import icp, preprocess, se3
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
 from lidar_odometry_demo_tpu_torch.ops.cloud import (
@@ -202,33 +203,20 @@ class ScanStep:
     def update(self, state: OdometryState, prep: Prepared, pose: se3.Pose, iters, step_norm,
                n_matches, diverged, tab_out: torch.Tensor | None = None):
         """Map maintenance (lidar_odometry.cpp:67-70: evict + rebase +
-        insert in one pass) at the scan's pose, the new table gathered into
-        `tab_out` where given (vm.map_update); returns (new state,
-        diagnostics)."""
+        insert in one pass) of the update points at the scan's pose, the new
+        table written into `tab_out` where given (kernels/map_update.py, the
+        world transform and the diagnostics in the same call); returns (new
+        state, diagnostics). Under a spatial group only the columns this rank
+        owns are inserted, the origin rebased in steps of N."""
         cfg, spatial_group = self.cfg, self.spatial_group
-        upd_world = preprocess.transform_with_normals(prep.update_ds, pose)
-        if spatial_group is None:
-            keyframe = vm.map_update(
-                state.keyframe, upd_world, pose.t,
-                voxel_size=cfg.keyframe_voxel_size, radius=cfg.keyframe_cleanup_range,
-                tab_out=tab_out)
-            map_voxels = vm.map_size(keyframe)
-        else:  # insert only the columns this rank owns; rebase in steps of N
-            from lidar_odometry_demo_tpu_torch.parallel import spatial
-
-            own = spatial.owner_mask(upd_world.xyz, state.keyframe.origin,
-                                     cfg.keyframe_voxel_size, spatial_group)
-            upd_world = upd_world._replace(valid=upd_world.valid & own)
-            keyframe = vm.map_update(
-                state.keyframe, upd_world, pose.t,
-                voxel_size=cfg.keyframe_voxel_size, radius=cfg.keyframe_cleanup_range,
-                origin_quantum=spatial_group.size)
-            map_voxels = spatial_group.psum(vm.map_size(keyframe), "map_voxels")
-        upd_keys = vm.pack_keys(
-            vm.voxel_indices(upd_world.xyz, cfg.keyframe_voxel_size),
-            keyframe.origin, upd_world.valid, map_window=True)
-        n_dropped = torch.sum(upd_world.valid & (upd_keys == vm.EMPTY_KEY), dim=-1,
-                              dtype=torch.int32)
+        upd = update_map(
+            state.keyframe, prep.update_ds, voxel_size=cfg.keyframe_voxel_size, center=pose.t,
+            radius=cfg.keyframe_cleanup_range, pose=pose,
+            origin_quantum=1 if spatial_group is None else spatial_group.size,
+            owner=spatial_group, tab_out=tab_out if spatial_group is None else None)
+        keyframe, map_voxels, n_dropped = upd
+        if spatial_group is not None:
+            map_voxels = spatial_group.psum(map_voxels, "map_voxels")
         new_state = OdometryState(keyframe=keyframe, current=pose, previous=prep.previous)
         diag = StepDiagnostics(
             pose=pose,

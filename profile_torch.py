@@ -226,7 +226,7 @@ def main() -> int:
     # times every call of the next eager step stepper() builds
     stage_s = collections.Counter()
     patched = [(preprocess, "deskew"), (classifier, "classify"), (vm, "downsample"),
-               (vm, "map_update")]
+               (odometry, "update_map")]
     originals = {(mod, name): getattr(mod, name) for mod, name in patched}
     make_align = icp.make_align
     for mod, name in patched:

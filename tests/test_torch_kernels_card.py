@@ -28,7 +28,10 @@ reference_parity) within 1e-4 m of the same drive through the port on the
 CPU, with equal ICP iteration counts and launch counts equal to the
 schedule; the step's front end (kernels/prepare.py) bitwise its plain
 version on the card, every output (the normals on planar cells), on drive
-scans and on tests/_prepare_cases.py's edge scans.
+scans and on tests/_prepare_cases.py's edge scans; the map update
+(kernels/map_update.py) bitwise its plain version on the card, the whole
+table, keys, count, origin, size and dropped count, on the cases of
+tests/_map_update_cases.py and on drive states.
 """
 
 import numpy as np
@@ -972,3 +975,123 @@ def test_front_end_counts_one_call_per_step(lanes):
         odometry.make_sequence_runner(TINY)(odometry.init_state(TINY, "cuda"), scans)
     _counts()
     assert prepare.launches - before == len(scans)
+
+
+# --------------------------------------------------------------------------
+# the map update (kernels/map_update.py)
+# --------------------------------------------------------------------------
+
+_MAP_UPDATE_DRIVES: dict = {}
+
+
+def _map_update_cases(name: str, lanes: int):
+    """Cases of tests/_map_update_cases.py: one lane (no axis) or `lanes`
+    seeds stacked; "lanes8" 8 lanes with an empty map; "drive" /
+    "drive_tiny" the recorded states of a 6-scan drive on the card at full
+    width / TINY, each alone, or two stacks of `lanes` of them (cycled)."""
+    import _map_update_cases as cases
+
+    if name == "lanes8":
+        return [cases.lanes_with_an_empty_map(seed=7)]
+    if name.startswith("drive"):
+        cfg = TINY if name == "drive_tiny" else OdometryConfig()
+        if name not in _MAP_UPDATE_DRIVES:
+            _MAP_UPDATE_DRIVES[name] = cases.drive_states(cfg, 6, seed=21, device="cuda")
+        states = _MAP_UPDATE_DRIVES[name]
+        if not lanes:
+            return states
+        return (cases.stack_lanes([states[(s + b) % len(states)] for b in range(lanes)])
+                for s in (0, 3))
+    if not lanes:
+        return [cases.make_case(name, seed=11)]
+    return [cases.stack_lanes([cases.make_case(name, seed=11 + b) for b in range(lanes)])]
+
+
+def _assert_update_equal(got, want):
+    """Bitwise: the whole table (every lane of every row), keys, count,
+    origin, the size and the dropped count."""
+    for f in ("tab", "keys", "count", "origin"):
+        assert torch.equal(getattr(got.keyframe, f), getattr(want.keyframe, f)), f
+    assert torch.equal(got.size, want.size) and torch.equal(got.dropped, want.dropped)
+
+
+@pytest.mark.parametrize("lanes", [0, 8], ids=["one", "B8"])
+@pytest.mark.parametrize("name", ["first_insert", "saturated", "rebase_q1", "rebase_q4",
+                                  "tombstone_reuse", "over_cap", "all_empty", "cleanup",
+                                  "insert", "spatial", "lanes8", "drive", "drive_tiny"])
+def test_map_update_kernel_matches_plain(name, lanes):
+    """The map update bitwise its plain version on the card, on every case
+    of tests/_map_update_cases.py with no lane axis and at B = 8 (each lane
+    its lone call), into a new table and in place (tab_out = m.tab), one
+    count a call in `map_update.launches`."""
+    _need_card()
+    import _map_update_cases as cases
+
+    from lidar_odometry_demo_tpu_torch.kernels.map_update import map_update, map_update_plain
+
+    if name == "lanes8" and not lanes:
+        pytest.skip("the empty lane is a lane of 8")
+    for c in _map_update_cases(name, lanes):
+        m, new, kw = cases.torch_args(c, "cuda")
+        want = map_update_plain(m, new, **kw)
+        before = map_update.launches
+        got = map_update(m, new, **kw)
+        assert map_update.launches - before == 1
+        _assert_update_equal(got, want)
+        tab = m.tab.clone()
+        inplace = map_update(m._replace(tab=tab), new, **kw, tab_out=tab)
+        assert inplace.keyframe.tab.data_ptr() == tab.data_ptr()
+        _assert_update_equal(inplace, want)
+        for b in range(lanes):
+            one = map_update(*(_lane(x, b) for x in (m, new)),
+                             **dict(kw, pose=_lane(kw["pose"], b) if kw["pose"] else None,
+                                    center=None if kw["center"] is None else kw["center"][b]))
+            _assert_update_equal(_lane(got, b), one)
+        assert int(got.size.sum()) > 0
+
+
+def test_map_update_wrapper_checks_its_inputs():
+    _need_card()
+    import _map_update_cases as cases
+
+    from lidar_odometry_demo_tpu_torch.kernels.map_update import map_update
+
+    m, new, kw = cases.torch_args(cases.make_case("rebase_q1", seed=11), "cuda")
+    with pytest.raises(ValueError, match="int32"):
+        map_update(m._replace(keys=m.keys.long()), new, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        map_update(m, new._replace(xyz=new.xyz.T.contiguous().T), **kw)
+    with pytest.raises(ValueError, match="shape"):
+        map_update(m, new._replace(valid=new.valid[:-1]), **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        map_update(m, new, **dict(kw, center=kw["center"].cpu()))
+    with pytest.raises(ValueError, match="center and radius"):
+        map_update(m, new, **dict(kw, radius=None))
+    with pytest.raises(ValueError, match="origin_quantum"):
+        map_update(m, new, **dict(kw, origin_quantum=0))
+
+
+@pytest.mark.parametrize("lanes", [0, 3], ids=["one", "B3"])
+def test_map_update_counts_one_call_per_step(lanes):
+    """`map_update.launches` counts one call a step on the card, eager scans
+    and captured replays alike (pipeline/graphs.py COUNTED)."""
+    _need_card()
+    from lidar_odometry_demo_tpu_torch.kernels.map_update import map_update
+    from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
+    from lidar_odometry_demo_tpu_torch.parallel import batched
+
+    d = simulate_sequence(num_scans=6, width=TINY.scan_width, seed=3, speed=2.0,
+                          yaw_rate=0.05, ramp_time=0.0)
+    scans = [scan_from_numpy(s["xyz"], s["intensity"], s["ring"], s["time"],
+                             TINY.max_raw_points, "cuda") for s in d.scans]
+    _counts()
+    before = map_update.launches
+    if lanes:
+        scans_b = LidarScan(*(torch.stack([torch.stack([getattr(s, f)] * lanes) for s in scans])
+                              for f in LidarScan._fields))
+        batched.make_batched_sequence_runner(TINY)(
+            batched.init_batched_state(TINY, lanes, "cuda"), scans_b)
+    else:
+        odometry.make_sequence_runner(TINY)(odometry.init_state(TINY, "cuda"), scans)
+    _counts()
+    assert map_update.launches - before == len(scans)
