@@ -35,7 +35,7 @@ Phases, each of which raises (non-zero exit) on failure:
    5 m/s, 0.08 rad/s): one warm-up pass, one timed pass. It fails if a
    kernel was not launched, if the launch counts do not match the schedule
    (K1 once per ICP round, K2 four times, K3 once per ICP scan and once per
-   map_update, the condition once per captured scan and once per round), if
+   map_update, the condition once per ICP scan and once per round), if
    aligned ATE against ground truth exceeds 0.03 m or is not within 1e-4 m
    of 0.00936 m (the JAX package's and the port's earlier runs), or if any
    scan diverged, or unless the step's front end and map update each ran
@@ -158,21 +158,21 @@ Phases, each of which raises (non-zero exit) on failure:
    graph of the ICP loop as a WHILE node and (c); their launch counts
    counted per launch and the loop's rounds read from the device when the
    counts are read. Here the eager step (`make_process_scan`, its ICP loop
-   on the host) runs the scans of the main path, the parity path and the
-   live path (the 40 scans phase 8 uploaded) from a fresh state, and the
-   fleet's B = 8 drives; each must be bitwise the captured runs of phases
-   3, 5, 8 and 7 (poses, ICP iterations and matches of every scan, every
-   lane; final keys, counts and origin), with K1, K2 and K3's launch
-   counters equal. Then, for both steps on each of the four, per scan
-   (fleet: per step of 8; scans 20-29 timed by the host clock, 30-39 under
-   torch.profiler, after 20 scans of warm-up; profile_torch.measure): ms,
+   the same schedule driven from the host) runs the scans of the main
+   path, the parity path and the live path (the 40 scans phase 8
+   uploaded) from a fresh state, and the fleet's B = 8 drives; each must
+   be bitwise the captured runs of phases 3, 5, 8 and 7 (poses, ICP
+   iterations and matches of every scan, every lane; final keys, counts
+   and origin), with every launch counter equal, the loop's condition's
+   among them. Then, for both steps on each of the four, per scan (fleet:
+   per step of 8; scans 20-39 after 20 scans of warm-up; `step_counts`):
    synchronising calls (torch's sync debug mode warnings plus the step's
-   waits on its pinned host copies), host launches (the CUDA runtime's
-   launch, graph-launch and copy calls) and among them graph launches,
-   device operations, busy ms, idle share and ICP rounds. It fails unless
-   the captured step makes exactly 1 synchronising call and at most 2 graph
-   launches per scan on every path, both steps run the same rounds, and
-   the main path runs 4.00 rounds per scan.
+   waits on its pinned host copies), graph launches and ICP rounds. It
+   fails unless the captured step makes exactly 1 synchronising call and
+   at most 2 graph launches per scan on every path, both steps run the
+   same rounds, and the main path runs 4.00 rounds per scan. Device
+   operations, busy ms and idle share by name are odobench's
+   (`odobench/run.py --trace 1`).
 
 Prints a `kernels` JSON line (each kernel, the loop's condition among
 them, with its launches on every path,
@@ -760,8 +760,9 @@ def check_loop_condition(rng, device) -> dict:
 
 def counters() -> dict:
     """The launch-counted kernel wrappers, by kernel name: K1, K2, K3, the
-    ICP loop's condition (which only the captured step launches) and the
-    step's front end (one count a step, of four launches)."""
+    ICP loop's condition (before an ICP loop's first round and after each
+    round, eager or captured) and the step's front end (one count a step,
+    of four launches)."""
     from lidar_odometry_demo_tpu_torch.kernels.correspondence import match_rows
     from lidar_odometry_demo_tpu_torch.kernels.jtwj import jtwj_accumulate
     from lidar_odometry_demo_tpu_torch.kernels.loop import loop_condition
@@ -794,13 +795,13 @@ def read_counts(counted: dict | None = None) -> dict:
     return {name: fn.launches for name, fn in (counted or counters()).items()}
 
 
-def loop_schedule(iters: np.ndarray, eager_scans: int) -> int:
-    """The condition kernel's launches over a drive whose first
-    `eager_scans` scans ran eager (the warm-up and first scans) and the rest
-    captured: per captured scan one before the WHILE node and one per round
-    (a step's rounds are its slowest lane's)."""
-    per_step = iters.reshape(len(iters), -1).max(axis=1)[eager_scans:]
-    return int(per_step.sum()) + len(per_step)
+def loop_schedule(iters: np.ndarray) -> int:
+    """The condition kernel's launches over a drive without a group, eager
+    or captured scans alike: per step that ran ICP one before its first
+    round and one per round (a step's rounds are its slowest lane's)."""
+    per_step = iters.reshape(len(iters), -1).max(axis=1)
+    ran = per_step[per_step > 0]
+    return int(ran.sum()) + len(ran)
 
 
 def bench_drive(device) -> dict:
@@ -841,7 +842,6 @@ def drive_path(name: str, cfg, bench: dict, device, *, ate_gt=None, ate_ref_max=
 
     from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
     from lidar_odometry_demo_tpu_torch.ops.voxel_map import map_size
-    from lidar_odometry_demo_tpu_torch.pipeline.graphs import WARM_UP_SCANS
     from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
 
     scans = bench["scans"]
@@ -886,11 +886,10 @@ def drive_path(name: str, cfg, bench: dict, device, *, ate_gt=None, ate_ref_max=
         if launches[kernel] != num_scans:
             raise AssertionError(f"{name}: {kernel} calls {launches[kernel]} != scans "
                                  f"{num_scans} (one a step, eager or captured)")
-    # a fresh LidarOdometry: the warm-up scans eager, the rest captured
-    want_loop = loop_schedule(iters, WARM_UP_SCANS)
+    want_loop = loop_schedule(iters)
     if launches["loop_condition"] != want_loop:
         raise AssertionError(f"{name}: condition launches {launches['loop_condition']} != "
-                             f"captured scans + their rounds {want_loop}")
+                             f"ICP scans + their rounds {want_loop}")
     if ate > 0.03:
         raise AssertionError(f"{name}: aligned ATE {ate:.4f} m exceeds 0.03 m")
     if ate_gt is not None and abs(ate - ate_gt) > 1e-4:
@@ -1571,7 +1570,7 @@ def run_fleet(bench: dict, main_diags: list, main_odo, single_ms: float, device)
         raise AssertionError(f"fleet path: {diverged} lane scans diverged")
     # the runner's step is captured already: only the fresh state's first step is eager
     want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
-            "search_sorted": icp_steps + S, "loop_condition": loop_schedule(iters, 1),
+            "search_sorted": icp_steps + S, "loop_condition": loop_schedule(iters),
             "prepare": S, "map_update": S}
     if launches != want:
         raise AssertionError(f"fleet path: launches {launches} != the schedule {want}")
@@ -2001,7 +2000,6 @@ def run_live_path(bench: dict, main_diags: list, main_ms: float, device) -> dict
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig
     from lidar_odometry_demo_tpu_torch.io import live, native
     from lidar_odometry_demo_tpu_torch.io.trajectory import ate_rmse
-    from lidar_odometry_demo_tpu_torch.pipeline.graphs import WARM_UP_SCANS
     from lidar_odometry_demo_tpu_torch.pipeline.odometry import LidarOdometry
 
     cfg = OdometryConfig()
@@ -2099,7 +2097,7 @@ def run_live_path(bench: dict, main_diags: list, main_ms: float, device) -> dict
     rounds = int(iters.sum())
     want = {"match_rows": rounds, "jtwj_accumulate": cfg.icp_inner_iterations * rounds,
             "search_sorted": int(np.sum(iters > 0)) + n,
-            "loop_condition": loop_schedule(iters, WARM_UP_SCANS), "prepare": n,
+            "loop_condition": loop_schedule(iters), "prepare": n,
             "map_update": n}
     log(f"live: {d_free_t:.3g} m / {d_free_q:.3g} from the socket-free run over the same "
         f"packets, {d_main:.5f} m from the main path (phase 3), aligned ATE {ate:.5f} m vs "
@@ -2859,8 +2857,9 @@ def _ranks_equal(label: str, rs: list, fields) -> None:
 def _split_schedule(label: str, rs: list, n_scans: int) -> None:
     """Every rank launched the split step's schedule: per ICP round (one
     gather of matches and cost) one K1, one jtwj_accumulate, a gn_sum_step
-    per later inner iteration and one K2e, with a gather of H and b per
-    inner iteration; two lookups per scan."""
+    per later inner iteration, one K2e and one condition, with a gather of
+    H and b per inner iteration; per scan two lookups and one condition
+    before the rounds (a group's step runs ICP on every scan)."""
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig
 
     inner = OdometryConfig().icp_inner_iterations
@@ -2869,7 +2868,8 @@ def _split_schedule(label: str, rs: list, n_scans: int) -> None:
         rounds = by_kind.get("matches,cost", 0)
         want = {"match_rows": rounds, "jtwj_accumulate": rounds,
                 "gn_sum_step": (inner - 1) * rounds, "gn_epilogue": rounds,
-                "search_sorted": 2 * n_scans, "loop_condition": 0, "prepare": n_scans,
+                "search_sorted": 2 * n_scans, "loop_condition": rounds + n_scans,
+                "prepare": n_scans,
                 "map_update": n_scans}
         if r["launches"] != want or by_kind.get("H,b", 0) != inner * rounds:
             raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the split "
@@ -3048,7 +3048,7 @@ def check_dp_ranks(label: str, rs: list, fleet: dict) -> dict:
         want = {"match_rows": rounds, "jtwj_accumulate": inner * rounds, "gn_sum_step": 0,
                 "gn_epilogue": 0,
                 "search_sorted": int(np.sum(r["iters"].max(axis=1) > 0)) + n_scans,
-                "loop_condition": loop_schedule(r["iters"], 1), "prepare": n_scans,
+                "loop_condition": loop_schedule(r["iters"]), "prepare": n_scans,
                 "map_update": n_scans}
         if r["launches"] != want:
             raise AssertionError(f"{label}, rank {i}: launches {r['launches']} != the batched "
@@ -3218,37 +3218,59 @@ def _bitwise_drives(label: str, got: tuple, want: tuple) -> None:
                              f"{bad[:8]}")
 
 
-def run_capture_check(bench: dict, paths: dict, fleet: dict, device) -> dict:
-    """Phase 11: the eager step (its ICP loop on the host) over the scans
-    of the main, parity and live paths from a fresh state and over the
-    fleet's B = 8 drives, each bitwise the captured step's run of phases 3,
-    5, 8 and 7 (`paths`: name -> (diagnostics, final state, launches, scans),
-    `fleet`: phase 7's result), lane by lane, with K1, K2 and K3's launch
-    counters equal and no condition launched. Then, per scan for both steps
-    on each path (per step of 8 on the fleet), profile_torch.measure's
-    synchronising calls, host launches (graph launches among them), device
-    operations, busy ms, idle share, ms and ICP rounds. It fails unless the
-    captured step makes exactly one synchronising call and at most two graph
-    launches per scan on every path, and both steps run the same rounds
-    (4.00 per scan on the main path)."""
+def step_counts(run, scans) -> dict:
+    """run(scan) -> the scan's ICP iterations (a device tensor, read after
+    the scans, so that the count adds no synchronisation) over `scans` (a
+    warmed step): per scan, the synchronising calls (torch's sync debug
+    mode warnings plus the step's waits on its pinned host copies,
+    `HostFlags.waits`, which that mode does not see), the graph launches
+    from the host (`pipeline.graphs.graph_launches`) and the ICP rounds (a
+    step's rounds are its slowest lane's)."""
+    import warnings
+
     import torch
 
+    from lidar_odometry_demo_tpu_torch.device import HostFlags
+    from lidar_odometry_demo_tpu_torch.pipeline import graphs
+
+    torch.cuda.synchronize()
+    waits, launched = HostFlags.waits, graphs.graph_launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            iters = [run(scan) for scan in scans]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n = len(scans)
+    waits, launched = HostFlags.waits - waits, graphs.graph_launches - launched
+    # one warning per synchronising call (the mode's own notice aside)
+    warned = sum("called a synchronizing" in str(w.message) for w in caught)
+    return dict(scans=n, sync_warnings=warned / n, waits=waits / n, syncs=(warned + waits) / n,
+                graph_launches=launched / n, rounds=sum(int(x.max()) for x in iters) / n)
+
+
+def run_capture_check(bench: dict, paths: dict, fleet: dict, device) -> dict:
+    """Phase 11: the eager step over the scans of the main, parity and live
+    paths from a fresh state and over the fleet's B = 8 drives, each
+    bitwise the captured step's run of phases 3, 5, 8 and 7 (`paths`: name
+    -> (diagnostics, final state, launches, scans), `fleet`: phase 7's
+    result), lane by lane, with every launch counter equal (the loop's
+    condition among them: the eager step's loop runs the loop graph's
+    schedule from the host). Then, per scan for both steps on each path
+    (per step of 8 on the fleet; `step_counts` over scans 20-39 after 20 of
+    warm-up), synchronising calls, graph launches and ICP rounds. It fails
+    unless the captured step makes exactly one synchronising call and at
+    most two graph launches per scan on every path, and both steps run the
+    same rounds (4.00 per scan on the main path)."""
     from lidar_odometry_demo_tpu_torch.config import OdometryConfig, reference_parity
     from lidar_odometry_demo_tpu_torch.ops.cloud import LidarScan
     from lidar_odometry_demo_tpu_torch.parallel import batched
     from lidar_odometry_demo_tpu_torch.pipeline import odometry
     from lidar_odometry_demo_tpu_torch.pipeline.graphs import CapturedStep
-    from profile_torch import measure, start_cupti
 
-    start_cupti()  # before the graphs measured below are built
     cfg = OdometryConfig()
     cfgs = dict(main=cfg, parity=reference_parity(cfg), live=cfg)
-    kernel_names = ("match_rows", "jtwj_accumulate", "search_sorted")
-
-    def same_launches(label: str, captured: dict, eager: dict) -> None:
-        if eager["loop_condition"] or any(captured[k] != eager[k] for k in kernel_names):
-            raise AssertionError(f"{label}: the captured run's launches {captured} differ "
-                                 f"from the eager step's {eager}")
 
     S, B = fleet["scans"].xyz.shape[:2]
     lanes = [LidarScan(*(x[s] for x in fleet["scans"])) for s in range(S)]
@@ -3265,11 +3287,13 @@ def run_capture_check(bench: dict, paths: dict, fleet: dict, device) -> dict:
         e_state, e_diags = _eager_drive(c, state0, scans)
         e_launches = read_counts()
         _bitwise_drives(f"{name} path", got, (e_diags, e_state))
-        same_launches(f"{name} path", launches, e_launches)
+        if e_launches != launches:
+            raise AssertionError(f"{name} path: the captured run's launches {launches} differ "
+                                 f"from the eager step's {e_launches}")
     log(f"captured step: bitwise the eager step on the main, parity and live paths "
         f"({', '.join(str(len(d[2])) for d in drives.values())} scans) and on the fleet "
         f"(B = {B}, every lane): poses, iterations, matches, final keys, counts and origin; "
-        f"K1, K2 and K3's launch counters equal to the eager step's on each")
+        f"every launch counter (the loop's condition among them) equal to the eager step's")
 
     out = {}
     for name, (c, _, scans, _, _) in drives.items():
@@ -3286,30 +3310,20 @@ def run_capture_check(bench: dict, paths: dict, fleet: dict, device) -> dict:
 
             for scan in scans[:20]:
                 run(scan)
-            m = measure(run, scans[20:40])
-            m["graph_launches"] = sum(v for k, v in m["host_launch_calls"].items()
-                                      if "GraphLaunch" in k)
-            key = f"{name.split()[0]} {label}"
-            out[key] = {k: v for k, v in m.items() if not k.endswith("events")}
-            log(f"phase 11, {key} step, per {unit} (scans 20-29 timed, 30-39 profiled): "
-                f"{m['ms']:.3f} ms, {m['syncs']:.2f} synchronising calls (sync debug "
-                f"warnings {m['sync_warnings']:.2f}, step waits {m['waits']:.2f}), "
-                f"{m['host_launches']:.1f} host launches, {m['graph_launches']:.1f} of them "
-                f"graph launches {dict((k, round(v, 1)) for k, v in m['host_launch_calls'].items())}, "
-                f"{m['device_ops']:.1f} device operations, busy {m['busy_ms']:.3f} ms, idle "
-                f"share {m['idle_share_timed']:.4f} against the timed ms "
-                f"({m['idle_share']:.4f} against {m['profiled_ms']:.3f} ms with the profiler), "
-                f"{m['rounds'] / m['scans']:.2f} ICP rounds")
+            m = out[f"{name.split()[0]} {label}"] = step_counts(run, scans[20:40])
+            log(f"phase 11, {name.split()[0]} {label} step, per {unit} (scans 20-39): "
+                f"{m['syncs']:.2f} synchronising calls (sync debug warnings "
+                f"{m['sync_warnings']:.2f}, step waits {m['waits']:.2f}), "
+                f"{m['graph_launches']:.2f} graph launches, {m['rounds']:.2f} ICP rounds")
         e, g = out[f"{name.split()[0]} eager"], out[f"{name.split()[0]} captured"]
         if abs(g["syncs"] - 1.0) > 1e-9 or g["graph_launches"] > 2 + 1e-9:
             raise AssertionError(f"phase 11, {name}: the captured step makes {g['syncs']} "
                                  f"synchronising calls and {g['graph_launches']} graph launches "
                                  f"per {unit} (1 and at most 2 asked)")
-        if (e["rounds"], e["profiled_rounds"]) != (g["rounds"], g["profiled_rounds"]):
-            raise AssertionError(f"phase 11, {name}: ICP rounds eager {e['rounds']} / "
-                                 f"{e['profiled_rounds']}, captured {g['rounds']} / "
-                                 f"{g['profiled_rounds']}")
-    main_rounds = out["main captured"]["rounds"] / out["main captured"]["scans"]
+        if e["rounds"] != g["rounds"]:
+            raise AssertionError(f"phase 11, {name}: ICP rounds per {unit} eager {e['rounds']}, "
+                                 f"captured {g['rounds']}")
+    main_rounds = out["main captured"]["rounds"]
     if main_rounds != 4.0:
         raise AssertionError(f"phase 11: {main_rounds} ICP rounds per scan on the main path "
                              f"(4.00 before the loop moved to the device)")

@@ -21,15 +21,14 @@ carry in buffers of its own), `Align.round` (one round, updating the carry
 in place: the pose and step norm, the rounds run, the stall count and the
 best-pose bookkeeping) and `Align.finish` (the best-pose exit). The JAX
 loop's condition is `Align.condition` (kernels/loop.py, a kernel on the
-card), which reads only the carry. On the card the captured step without
-a group runs the loop on the device: the condition, then a CUDA graph
-WHILE node over the round and the condition, with no host read. The
-eager step (the CPU's, a gloo group's, the warm-up's) and the captured
-step under an NCCL group run the plain loop on the host instead
-(`run_rounds`): after each round it copies the round's exit flags to the
-host, waits for them and evaluates the condition there (`RoundSchedule`),
-one synchronisation per round. No tensor is made from host data inside
-the three parts or the condition.
+card), which reads only the carry and writes `go`. One schedule runs the
+loop: the condition, then while any lane goes a round and the condition.
+On the card the captured step without a group runs it on the device, as a
+CUDA graph WHILE node with no host read; every other driver (the eager
+step, the captured step under an NCCL group) runs it from the host
+(`run_rounds`), which reads `go` after each round's condition, one
+synchronisation per round. No tensor is made from host data inside the
+three parts or the condition.
 
 Groups (the JAX package's `axis_name`): with a group of ranks (an sp group,
 each rank holding a slice of the queries, or a spatial group, each rank
@@ -49,8 +48,7 @@ axis on the map, the queries and the guess), as the JAX package's
 `while_loop` under `vmap` does: rounds go on while any lane's condition
 holds, and a finished lane is frozen (kernel K2 returns its pose and step
 norm unchanged; every other update is masked) through the carry's (B,)
-`active` buffer, which the condition writes on the device (the host loop
-writes it from its schedule before each round instead).
+`active` buffer, which is `go`: the condition writes it on every path.
 """
 
 from __future__ import annotations
@@ -63,7 +61,7 @@ from lidar_odometry_demo_tpu_torch.config import OdometryConfig
 from lidar_odometry_demo_tpu_torch.device import HostFlags, constant
 from lidar_odometry_demo_tpu_torch.kernels.jtwj import (
     GnWork, gn_epilogue, gn_step, gn_sum_step, jtwj_accumulate, sum_in_rank_order)
-from lidar_odometry_demo_tpu_torch.kernels.loop import loop_condition
+from lidar_odometry_demo_tpu_torch.kernels.loop import loop_condition, loop_condition_plain
 from lidar_odometry_demo_tpu_torch.kernels.search import query_world
 from lidar_odometry_demo_tpu_torch.ops import se3
 from lidar_odometry_demo_tpu_torch.ops import voxel_map as vm
@@ -98,8 +96,6 @@ class IcpLoop(NamedTuple):
     stall: torch.Tensor         # rounds since the best cost last improved (int32)
     go: torch.Tensor            # the condition per lane (bool); over lanes `active` itself
     active: torch.Tensor | None  # (B,) over lanes: the lanes this round runs
-    go_host: torch.Tensor | None  # (B,) host staging of `active` (the host loop's)
-    flags: HostFlags            # the round's (2, lanes) exit flags, on the host
 
     @property
     def pose(self) -> se3.Pose:
@@ -108,33 +104,6 @@ class IcpLoop(NamedTuple):
     @property
     def step_norm(self) -> torch.Tensor:
         return self.work.slots[-1][1]
-
-
-class RoundSchedule:
-    """The JAX loop's condition, per lane, on the host: the plain version
-    of the device loop (its own carry of rounds run, rounds without
-    improvement and the last round's convergence flag, advanced from each
-    round's flags)."""
-
-    def __init__(self, cfg: OdometryConfig, n_lanes: int):
-        self.cfg = cfg
-        self.i, self.stall = [0] * n_lanes, [0] * n_lanes
-        self.not_converged = [True] * n_lanes
-
-    def go(self) -> list[bool]:
-        cfg = self.cfg
-        return [i < cfg.icp_max_outer_iterations
-                and (nc or i <= cfg.icp_min_outer_iterations - 1)
-                and stall < cfg.icp_stall_exit_rounds
-                for i, stall, nc in zip(self.i, self.stall, self.not_converged)]
-
-    def advance(self, go: list[bool], flags: list) -> None:
-        """flags: [step norm >= tolerance, improved], each per lane."""
-        for b, running in enumerate(go):
-            if running:
-                self.i[b] += 1
-                self.not_converged[b] = flags[0][b]
-                self.stall[b] = 0 if flags[1][b] else self.stall[b] + 1
 
 
 def _gn_steps(corr: vm.Correspondence, pose: se3.Pose, guess_t: torch.Tensor,
@@ -178,10 +147,10 @@ class Align:
     Every argument may carry a leading lane axis B; the result then has it
     too (iterations, step norm and matches per lane).
 
-    Calling it runs `begin`, then `round` until the host's schedule stops
+    Calling it runs `begin`, the loop's schedule from the host
     (`run_rounds`), then `finish`; pipeline/graphs.py captures the three
-    parts as CUDA graphs and, without a group, runs the rounds under a
-    WHILE node on the device, its condition `condition`.
+    parts as CUDA graphs and, without a group, runs the same schedule on
+    the device, under a WHILE node.
 
     `group` (parallel/mesh.py Group): the ranks that share this problem,
     each with its own queries (and, under a column-sharded map, its own
@@ -193,20 +162,12 @@ class Align:
 
     def __init__(self, cfg: OdometryConfig, group=None, owner_fn=None):
         self.cfg, self.group, self.owner_fn = cfg, group, owner_fn
-        self._host: dict = {}
-
-    def host_buffers(self, lead: tuple, device):
-        """(exit flags, active staging) on the host for the lanes `lead`,
-        made once (outside any capture) and reused by every scan."""
-        key = (lead, torch.device(device))
-        if key not in self._host:
-            n_lanes = lead[0] if lead else 1
-            go = None
-            if lead:
-                go = torch.ones(lead, dtype=torch.bool,
-                                pin_memory=torch.device(device).type == "cuda")
-            self._host[key] = (HostFlags((2, n_lanes), torch.bool, device), go)
-        return self._host[key]
+        # the condition on `begin`'s carry (no round, no stall, step norm
+        # 1e9), the same for every lane and known on the host
+        self.starts = bool(loop_condition_plain(
+            torch.zeros((), dtype=torch.int32), torch.zeros((), dtype=torch.int32),
+            torch.tensor(1e9, dtype=torch.float32), cfg))
+        self._go: dict = {}
 
     def begin(self, m: vm.VoxelMap, query_xyz: torch.Tensor, query_valid: torch.Tensor,
               guess: se3.Pose) -> IcpLoop:
@@ -232,7 +193,6 @@ class Align:
         pose.t.copy_(guess.t)
         pose.q.copy_(guess.q)
         step_norm.fill_(1e9)
-        flags, go_host = self.host_buffers(lead, dev)
         go = torch.ones(lead, dtype=torch.bool, device=dev)
         return IcpLoop(
             query_xyz=query_xyz, query_valid=query_valid, guess=guess, cand=cand,
@@ -240,8 +200,7 @@ class Align:
             best_pose=se3.Pose(guess.t.clone(), guess.q.clone()),
             best_cost=torch.full(lead, 1e9, **f32), best_matches=torch.zeros(lead, **i32),
             n_matches=torch.zeros(lead, **i32), iters=torch.zeros(lead, **i32),
-            stall=torch.zeros(lead, **i32), go=go, active=go if lead else None,
-            go_host=go_host, flags=flags)
+            stall=torch.zeros(lead, **i32), go=go, active=go if lead else None)
 
     def round(self, m: vm.VoxelMap, loop: IcpLoop) -> None:
         """One correspondence round on the lanes `loop.active` holds: the
@@ -302,27 +261,24 @@ class Align:
         condition kernel on the card (kernels/loop.py)."""
         return loop_condition(loop.iters, loop.stall, loop.step_norm, self.cfg, out=loop.go)
 
-    def run_rounds(self, loop: IcpLoop, round_fn) -> RoundSchedule:
-        """The host loop: rounds until every lane's condition ends. Before
-        each, the lanes that run are written to `loop.active` (over lanes, a
-        copy from pinned memory); `round_fn()` enqueues the round; then its
-        exit flags (step norm >= tolerance, improved, for the lanes that
-        ran) are copied to the host and waited for. Returns the schedule,
-        which holds the host's own count of each lane's rounds and stalls."""
-        schedule = RoundSchedule(self.cfg, loop.flags.host.shape[1])
-        tol = constant(float(self.cfg.icp_convergence_step_norm), torch.float32,
-                       loop.step_norm.device)
-        while True:
-            go = schedule.go()
-            if not any(go):
-                return schedule
-            if loop.active is not None:
-                loop.go_host.copy_(torch.tensor(go))
-                loop.active.copy_(loop.go_host, non_blocking=True)
+    def run_rounds(self, loop: IcpLoop, round_fn) -> None:
+        """The loop graph's schedule (kernels/loop.py `LoopGraph`) driven
+        from the host: the condition, then while any lane goes
+        `round_fn()` (which enqueues a round) and the condition, whose `go`
+        the host reads, one wait per round. The first condition holds
+        `self.starts` on every lane, so it is not read."""
+        key = (loop.go.numel(), loop.go.device)
+        go = self._go.get(key)
+        if go is None:
+            go = self._go[key] = HostFlags((loop.go.numel(),), torch.bool, loop.go.device)
+        self.condition(loop)
+        running = self.starts
+        while running:
             round_fn()
-            loop.flags.write(torch.stack([loop.step_norm >= tol, loop.stall == 0]))
-            loop.flags.mark()
-            schedule.advance(go, loop.flags.read())
+            self.condition(loop)
+            go.write(loop.go)
+            go.mark()
+            running = any(go.read())
 
     def finish(self, loop: IcpLoop) -> IcpResult:
         """The best-pose exit and the normalised pose."""

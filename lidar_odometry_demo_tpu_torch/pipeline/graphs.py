@@ -2,21 +2,23 @@
 JAX package's `jax.jit` of its step (pipeline/odometry.py there: "the
 whole step is one jit program"), its ICP `lax.while_loop` included.
 
-The eager step (pipeline/odometry.py `ScanStep`) issues ~1,400 launches
-per scan from Python. `CapturedStep` captures its parts once, as three
-graphs that share one memory pool:
+The eager step (pipeline/odometry.py `ScanStep`) issues every launch of a
+scan from Python. `CapturedStep` captures its parts once, as three graphs
+that share one memory pool:
 
-  (a) `prepare` (the fused front end, kernels/prepare.py, then the two
-      downsample grids) and ICP's `begin` (K3's neighbourhood lookup on
-      the cached path, the loop's carry);
+  (a) `ScanStep.start` (the fused front end, kernels/prepare.py, the two
+      downsample grids, a group's first-scan test and halo) and ICP's
+      `begin` (K3's neighbourhood lookup on the cached path, the loop's
+      carry);
   (b) one ICP round (`Align.round`: K1, on the exact path K3 before it,
       the round's cost, the best-pose and stall bookkeeping, the four K2
       steps);
-  (c) ICP's `finish` (the best-pose exit), the divergence guard, the map
-      update (K3's group lookup; its new table gathered straight into the
-      state's table buffer), the diagnostics, the rest of the new state
-      copied into the state buffers (a)-(c) read, and the next scan's
-      first-scan test copied to pinned host memory.
+  (c) `ScanStep.conclude`: ICP's `finish` (the best-pose exit), the
+      divergence guard, the map update (K3's group lookup; its new table
+      gathered straight into the state's table buffer), the diagnostics,
+      the rest of the new state copied into the state buffers (a)-(c)
+      read, and the next scan's first-scan test copied to pinned host
+      memory.
 
 (b) and (c) are composed into one more graph (kernels/loop.py `LoopGraph`):
 the ICP loop's condition (kernels/loop.cu, from the carry alone), a
@@ -34,9 +36,10 @@ tensors, and under a gloo group, whose collectives a graph cannot hold
 fallback). Under an NCCL sp or spatial group (parallel/mesh.py) the
 step's graphs hold the group's collectives: (b) the round's gathers, and
 for spatial (a) the halo exchange and the first-scan sum, (c) the
-map_voxels sum. Its rounds are driven from the host, as the eager group
-step's are (one wait per round, every rank reading the same flags, since
-the sums are added in rank order): (a), (b) per round, (c). On the card
+map_voxels sum. Its loop runs the same schedule from the host, as the
+eager step's does (`Align.run_rounds`: (b) replayed, then the condition
+and one wait per round, every rank reading the same `go`, since the sums
+are added in rank order): (a), (b) per round, (c). On the card
 the eager step also runs the first two scans of each lane count (the
 warm-up: kernels built, K2's cluster opt-in made, every constant of the
 step made, every collective's communicator set up) and, without a group,
@@ -230,19 +233,19 @@ class _Segment:
 
 class _LaneGraphs:
     """The captured step of one lane count: the state and scan buffers the
-    graphs read and write, and the graphs once captured. On CPU tensors
-    the same schedule calls the parts instead of launching graphs (the
-    segments composed eagerly, the loop's condition read on the host, which
-    the CPU tests hold to the eager step); `CapturedStep` runs the eager
-    step there.
+    graphs read and write, and the graphs once captured. The parts are the
+    eager step's (`ScanStep.start`, `Align.begin`, `Align.round`,
+    `ScanStep.conclude`); every group and spatial decision is theirs. On
+    CPU tensors the same schedule calls the parts instead of launching
+    graphs (the segments composed eagerly, the rounds driven from the host
+    by `Align.run_rounds`, which the CPU tests hold to the eager step);
+    `CapturedStep` runs the eager step there.
 
     Under a group (`grouped`: the step's sp or spatial group) the step runs
     as the eager group step does: ICP on every scan, each lane selecting its
     result on the device (no first-scan test on the host), the rounds
-    driven from the host with one wait each (`Align.run_rounds`, (b)
-    replayed per round, its gathers in it: every rank reads the same flags),
-    then (c); the spatial step's halo exchange and first-scan sum sit in
-    (a), its map_voxels sum in (c)."""
+    driven from the host (`Align.run_rounds`, (b) replayed per round, its
+    gathers in it), then (c)."""
 
     def __init__(self, step: ScanStep, state: OdometryState, scan: LidarScan):
         self.step = step
@@ -264,47 +267,32 @@ class _LaneGraphs:
         return all(self.initialized.read())
 
     def segment_a(self):
-        """(a): the scan's preparation and ICP's start, from the buffers.
-        Returns (Prepared, IcpLoop, the first-scan test per lane (under a
-        group; else None), the map ICP searches)."""
-        step, S = self.step, self.state
-        prep = step.prepare(S, self.scan)
-        initialized, icp_map = None, S.keyframe
-        if step.spatial_group is not None:  # the shards' sum; ICP searches the halo's view
-            from lidar_odometry_demo_tpu_torch.parallel import spatial
-
-            initialized = step.spatial_group.psum(vm.map_size(S.keyframe), "initialized") > 0
-            icp_map = spatial.build_halo_view(S.keyframe, step.spatial_group)
-        elif self.grouped:
-            initialized = vm.map_size(S.keyframe) > 0
-        return (prep, step.align.begin(icp_map, prep.q_xyz, prep.q_valid, prep.guess),
+        """(a): the scan's start and ICP's, from the buffers. Returns
+        (Prepared, IcpLoop, the first-scan test per lane (under a group;
+        else None), the map ICP searches)."""
+        prep, icp_map, initialized = self.step.start(self.state, self.scan)
+        return (prep, self.step.align.begin(icp_map, prep.q_xyz, prep.q_valid, prep.guess),
                 initialized, icp_map)
 
     def segment_b(self, loop, icp_map) -> None:
-        """(b): one ICP round on the carry of (a)'s loop; without a group
-        the WHILE node's body, the round and then the loop's condition (on
-        the card the captured round and the loop graph's condition node)."""
+        """(b): one ICP round on the carry of (a)'s loop (on the card the
+        loop graph's WHILE body adds the condition)."""
         self.step.align.round(icp_map, loop)
-        if not self.grouped:
-            self.step.align.condition(loop)
 
     def segment_c(self, prep, loop, initialized, icp_map):
         """(c): ICP's end, the map update and the diagnostics, the new state
         written into the buffers; without a group its first-scan test to
         the host (every lane initialized, as the captured step runs only
         then), under a group each lane's selection by (a)'s test."""
-        step, S = self.step, self.state
-        res = step.outcome(S, prep, step.align.finish(loop), initialized)
-        new, diag = step.update(S, prep, *res, tab_out=S.keyframe.tab)
+        S = self.state
+        new, diag = self.step.conclude(S, prep, loop, initialized, tab_out=S.keyframe.tab)
         copy_state(S, new)  # the table is in place already (spatial: copied here)
         if not self.grouped:
             self.initialized.write(diag.map_voxels > 0)
         return diag
 
     def _capture(self) -> None:
-        dev = self.scan.xyz.device
-        self.step.align.host_buffers(tuple(self.state.current.t.shape[:-1]), dev)
-        pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        pool = torch.cuda.graph_pool_handle() if self.scan.xyz.is_cuda else None
         # a collection during a capture may free garbage that owns CUDA
         # resources (an earlier step's graphs and events), a call a capture
         # refuses (seen: the process aborted); torch.cuda.graph collects
@@ -315,11 +303,8 @@ class _LaneGraphs:
         gc.disable()
         try:
             a = _Segment(self.segment_a, pool, group)
-            if loop_graph:  # the round alone: the loop graph adds the condition
-                b = _Segment(lambda: self.step.align.round(a.out[3], a.out[1]), pool,
-                             keep_graph=True)
-            else:
-                b = _Segment(lambda: self.segment_b(a.out[1], a.out[3]), pool, group)
+            b = _Segment(lambda: self.segment_b(a.out[1], a.out[3]), pool, group,
+                         keep_graph=loop_graph)
             c = _Segment(lambda: self.segment_c(*a.out), pool, group, keep_graph=loop_graph)
             self.segments = (a, b, c)
         finally:
@@ -332,27 +317,20 @@ class _LaneGraphs:
 
     def _run_loop(self) -> None:
         """The rounds while the loop's condition holds, then (c): on the
-        card one launch of the loop graph, counted as (c) and the first
-        condition (the rounds at `settle`); on the CPU the parts called;
-        under a group the host's loop over (b)."""
+        card without a group one launch of the loop graph, counted as (c)
+        and the first condition (the rounds at `settle`); otherwise the
+        host's schedule over (b) (`Align.run_rounds`), then (c)."""
         a, b, c = self.segments
-        if self.grouped:
+        if self.loop_graph is None:
             self.step.align.run_rounds(a.out[1], b.replay)
             c.replay()
             return
-        if self.loop_graph is not None:
-            global graph_launches
-            self.loop_graph.launch()
-            graph_launches += 1
-            c.count()
-            loop_condition.launches += 1
-            _UNSETTLED[id(self.loop_graph)] = (self.loop_graph, b.launches)
-            return
-        loop = a.out[1]
-        self.step.align.condition(loop)
-        while bool(loop.go.any()):
-            b.replay()
-        c.replay()
+        global graph_launches
+        self.loop_graph.launch()
+        graph_launches += 1
+        c.count()
+        loop_condition.launches += 1
+        _UNSETTLED[id(self.loop_graph)] = (self.loop_graph, b.launches)
 
     def __call__(self, state: OdometryState, scan: LidarScan):
         # known before (a) is queued: a state copied in, a capture; a group's

@@ -222,22 +222,6 @@ def test_cli_fleet_dp2_sp2_matches_the_jax_cli(tmp_path, capsys, monkeypatch, ti
         np.testing.assert_allclose(q, jq, atol=1e-4, rtol=0)
 
 
-def test_bench_cuda_without_a_card_exits_non_zero():
-    """bench_cuda.py prints no JSON line and exits non-zero without CUDA."""
-    import os
-    import pathlib
-    import subprocess
-    import sys
-
-    repo = pathlib.Path(__file__).resolve().parent.parent
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    proc = subprocess.run([sys.executable, str(repo / "bench_cuda.py")], cwd=repo, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode != 0
-    assert not [line for line in proc.stdout.splitlines() if line.startswith("{")]
-    assert "no CUDA device" in proc.stderr
-
-
 def test_multicard_smoke_without_a_card_exits_non_zero():
     """multicard_smoke.py prints no result and exits non-zero without CUDA
     (and, on a machine with one card, raises: it needs a card per rank)."""

@@ -1,10 +1,11 @@
 """The captured step's parts (pipeline/graphs.py) on CPU tensors, at TINY.
 
 On the CPU a `_LaneGraphs` calls its three parts where the card launches
-their graphs: (a) the scan's preparation and ICP's start, (b) the WHILE
-node's body, one ICP round and the loop's condition, (c) ICP's end, the
-map update and the diagnostics, on the buffers the graphs would read and
-write, in the graphs' schedule (the first scans through the eager step).
+their graphs: (a) the scan's preparation and ICP's start, (b) one ICP
+round (with the loop's condition the WHILE node's body), (c) ICP's end,
+the map update and the diagnostics, on the buffers the graphs would read
+and write, in the graphs' schedule (the first scans through the eager
+step, the rounds and conditions through the loop's one host schedule).
 Here those segments, composed eagerly, are held to the eager step and to
 the JAX package.
 
@@ -13,10 +14,10 @@ Tolerances: the segments bitwise the eager step (`make_process_scan`) on a
 B = 2 lanes and under reference_parity(TINY); against the JAX package's
 `make_sequence_runner` the bar of tests/test_torch_pipeline.py for a TINY
 drive (per-scan poses within 1e-4 m, equal ICP iterations). `active` all
-true bitwise `active=None`. Inside a segment (the body's condition
-included) no operation reads the device from the host or has an output
-shape that depends on the data, and every segment's outputs keep their
-shapes and dtypes from scan to scan. Under an sp and a spatial group (two
+true bitwise `active=None`. Inside a segment or the loop's condition no
+operation reads the device from the host or has an output shape that
+depends on the data, and every segment's outputs keep their shapes and
+dtypes from scan to scan. Under an sp and a spatial group (two
 gloo CPU ranks, one `run_ranks` call), the segments of a group's step,
 its rounds driven from the host, bitwise the eager group step on every
 rank, with the same checks inside each segment.
@@ -114,19 +115,21 @@ def composed(cfg, scans, record=False, step=None, state=None):
         if lead:
             state = batched.init_batched_state(cfg, lead[0], "cpu")
     lg = graphs._LaneGraphs(step or todo.make_process_scan(cfg), state, scans[0])
-    calls = {"a": [], "b": [], "c": []}
-    if record:
-        conditions = []  # the loop's condition, one entry per call
-        condition = lg.step.align.condition
-        lg.step.align.condition = lambda loop: conditions.append(1) or condition(loop)
-        for key, name in (("a", "segment_a"), ("b", "segment_b"), ("c", "segment_c")):
-            def wrapped(*args, _fn=getattr(lg, name), _key=key):
-                n = len(conditions)
+    calls = {"a": [], "b": [], "c": [], "condition": []}
+    if record:  # each call: its ops, its output signature, the conditions inside it
+        def recorded(fn, key):
+            def wrapped(*args):
+                n = len(calls["condition"])
                 with Recorder() as rec:
-                    out = _fn(*args)
-                calls[_key].append((rec.ops, _signature(out), len(conditions) - n))
+                    out = fn(*args)
+                calls[key].append((rec.ops, _signature(out), len(calls["condition"]) - n))
                 return out
-            setattr(lg, name, wrapped)
+            return wrapped
+
+        align = lg.step.align
+        align.condition = recorded(align.condition, "condition")  # the eager scans' too
+        for key in "abc":
+            setattr(lg, f"segment_{key}", recorded(getattr(lg, f"segment_{key}"), key))
     diags = []
     for scan in scans:
         state, diag = lg(state, scan)
@@ -218,21 +221,24 @@ def test_segments_match_jax(runs, drives, case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_segments_read_nothing_and_keep_their_shapes(runs, case):
     """No host read, host-data tensor or data-dependent shape inside a
-    segment (Recorder), the WHILE node's body with the loop's condition in
-    it (one condition per body, none in (a) or (c)), and every call of a
-    segment runs the same operations with the same output shapes and
-    dtypes, on scans of different point counts."""
+    segment or the loop's condition (Recorder), no condition inside a
+    segment, one condition before each scan's rounds and one after each
+    round (eager scans and segments alike), and every call of a segment
+    or the condition runs the same operations with the same output shapes
+    and dtypes, on scans of different point counts."""
     scans = runs[case]["scans"]
     counts = {int(s.valid.sum()) for s in scans}
     assert len(counts) > 1  # the drive's scans differ in size
-    _, _, _, calls = runs[case]["composed"]
+    _, diag, _, calls = runs[case]["composed"]
+    rounds = diag.icp_iterations.reshape(N_SCANS, -1).amax(dim=-1)
+    assert len(calls["condition"]) == int((rounds + 1)[rounds > 0].sum())
     for key, seen in calls.items():
         assert seen, key
         ops0, sig0, _ = seen[0]
         for ops, sig, n_conditions in seen:
             assert ops == ops0, f"segment {key} ran other operations"
             assert sig == sig0, f"segment {key} returned other shapes"
-            assert n_conditions == (key == "b"), f"segment {key}: {n_conditions} conditions"
+            assert n_conditions == 0, f"segment {key}: {n_conditions} conditions"
 
 
 def _round_inputs(drives):

@@ -14,8 +14,9 @@ and at full width (the 35-round budget run out at every scan; B = 3 lanes
 that stop at different rounds) its diagnostics and final state are
 bitwise the eager step's, and the kernels' launch counters, which count a
 graph's launches at every launch and the loop's rounds when they are
-settled, read what the eager drive's read. The loop's condition kernel
-is bitwise its plain version.
+settled, read what the eager drive's read, the loop's condition among
+them (the eager step's loop launches it as the WHILE node does). The
+loop's condition kernel is bitwise its plain version.
 """
 
 import numpy as np
@@ -36,7 +37,7 @@ from lidar_odometry_demo_tpu_torch.pipeline import graphs, odometry
 from lidar_odometry_demo_tpu_torch.utils import checkpoint
 
 pytestmark = pytest.mark.cuda
-COUNTERS = (match_rows, jtwj_accumulate, search_sorted)
+COUNTERS = (match_rows, jtwj_accumulate, search_sorted, loop_condition)
 N_SCANS = 8
 
 

@@ -1,17 +1,17 @@
-"""The ICP loop on the device (kernels/loop.py, ops/icp.py): its carry and
-its condition against the host loop and against the JAX package (CPU).
+"""The ICP loop's one schedule (ops/icp.py `Align.run_rounds`, the loop
+graph's: the condition, then while any lane goes a round and the
+condition, kernels/loop.py) against the JAX package (CPU).
 
-The device loop, as the captured step runs it on the card, is `begin`, the
-condition, then `round` and the condition while any lane goes, then
-`finish`; here its condition is the plain version (the wrapper on CPU
-tensors). The host loop is the eager step's (`run_rounds`, the JAX `cond`
-evaluated on the host by `RoundSchedule`).
+Here the condition is the plain version (the wrapper on CPU tensors). The
+loop is driven by `run_rounds` from `begin` with each round's lanes (the
+`go` the condition wrote before it) recorded, and its carry (rounds, stall
+count, step norm per lane) is read from the device.
 
-Tolerances: the device loop bitwise the host loop (pose, iterations, step
-norm, matches per lane), its carry equal to the host schedule's (rounds
-and stall count per lane, the convergence flag); against the JAX package's
-`make_align` (unbatched, per lane) equal iterations, t within 1e-5 m and q
-within 1e-6, the bar of tests/test_torch_icp.py.
+Tolerances: every lane's rounds equal to the rounds it ran in (each
+lane's `go` before the round), every lane running the first round, its
+condition false at the end; against the JAX package's `make_align`
+(unbatched, per lane) equal iterations, t within 1e-5 m and q within 1e-6,
+the bar of tests/test_torch_icp.py.
 """
 
 import jax.numpy as jnp
@@ -82,43 +82,36 @@ def _port_inputs(scene, offsets):
 
 
 def _device_loop(align, m, q, qv, guess):
-    """The loop as the loop graph runs it, with the plain condition: the
-    condition, then while any lane goes a round and the condition."""
+    """The loop from `begin` through `run_rounds`: (result, carry, each
+    round's `go` as it ran)."""
     loop = align.begin(m, q, qv, guess)
-    align.condition(loop)
-    while bool(loop.go.any()):
+    ran = []
+
+    def round_fn():
+        ran.append(loop.go.reshape(-1).tolist())
         align.round(m, loop)
-        align.condition(loop)
-    return align.finish(loop), loop
 
-
-def _host_loop(align, m, q, qv, guess):
-    loop = align.begin(m, q, qv, guess)
-    schedule = align.run_rounds(loop, lambda: align.round(m, loop))
-    return align.finish(loop), schedule
+    align.run_rounds(loop, round_fn)
+    return align.finish(loop), loop, ran
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_device_loop_is_the_host_loop_and_jax(scene, case):
-    """The device loop's carry and plain condition against the host loop
-    (`RoundSchedule`) and the JAX package's align, per lane."""
+    """The host-driven loop holds the loop graph's schedule (the rounds
+    each lane ran against the `go` recorded before each round, the final
+    condition false), and its device carry and pose equal the JAX
+    package's align, per lane."""
     changes, offsets = CASES[case]
     cfg, jcfg = TINY.replace(**changes), JTINY.replace(**changes)
     align = ticp.make_align(cfg)
-    inputs = _port_inputs(scene, offsets)
-    got, loop = _device_loop(align, *inputs)
-    want, schedule = _host_loop(align, *inputs)
-    for x, y in ((got.pose.t, want.pose.t), (got.pose.q, want.pose.q),
-                 (got.iterations, want.iterations), (got.step_norm, want.step_norm),
-                 (got.num_matches, want.num_matches)):
-        assert torch.equal(x, y)
+    got, loop, ran = _device_loop(align, *_port_inputs(scene, offsets))
     lanes = len(offsets)
     iters, stall = loop.iters.reshape(lanes), loop.stall.reshape(lanes)
-    assert iters.tolist() == schedule.i and stall.tolist() == schedule.stall
-    tol = cfg.icp_convergence_step_norm
-    assert (loop.step_norm.reshape(lanes) >= tol).tolist() == schedule.not_converged
+    step_norm = loop.step_norm.reshape(lanes)
+    assert align.starts and ran and ran[0] == [True] * lanes
+    assert iters.tolist() == [sum(r[b] for r in ran) for b in range(lanes)]
     assert not bool(loop_condition_plain(loop.iters, loop.stall, loop.step_norm, cfg).any())
-    assert schedule.go() == [False] * lanes
+    assert loop.go.reshape(-1).tolist() == [False] * lanes
 
     jm, q, qv = scene
     jalign = jicp.make_align(jcfg)
@@ -134,9 +127,9 @@ def test_device_loop_is_the_host_loop_and_jax(scene, case):
     # each case ends the way it is named
     if case == "converging":
         assert 0 < int(iters[0]) < cfg.icp_max_outer_iterations
-        assert schedule.not_converged == [False]
+        assert float(step_norm[0]) < cfg.icp_convergence_step_norm
     elif case == "stall_exit":
-        assert schedule.stall[0] >= cfg.icp_stall_exit_rounds
+        assert int(stall[0]) >= cfg.icp_stall_exit_rounds
         assert int(iters[0]) < cfg.icp_max_outer_iterations
     elif case == "round_cap":
         assert iters.tolist() == [cfg.icp_max_outer_iterations]
